@@ -1,0 +1,23 @@
+"""Device selection for the port's entry points.
+
+Entry points run on the card by default. The host CPU is used only when the
+caller asks for it (``device="cpu"``); a request for CUDA on a host without
+a card raises instead of silently running on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device: Union[str, torch.device] = DEFAULT_DEVICE) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the host"
+        )
+    return dev

@@ -1,0 +1,86 @@
+"""G2d — 2D synthesis network (counterpart of ``megaportraits_tpu/models/g2d.py``).
+
+Projected volume [B, H/8, W/8, 96] -> 1x1 conv 96->1536 -> 1x1 1536->512 ->
+8x ResBlock2D-512 (the trunk) -> 3x (bilinear up x2, align_corners=True, +
+ResBlock2D 512->256->128->64) -> GN+ReLU+3x3 conv-3 -> sigmoid in float32
+-> [B, H, W, 3].
+
+With ``use_chain_kernel`` the trunk runs through kernel K2
+(``ops/kernels/resblock_chain.py``) under the JAX conditions: not training,
+norm 'batch', H % 8 == 0 and W % 8 == 0; BatchNorm folded into per-conv
+scale/shift; one call per sample.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from megaportraits_tpu_torch.core.arch import FULL, Arch
+from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
+from megaportraits_tpu_torch.nn.blocks import ResBlock2D
+from megaportraits_tpu_torch.nn.layers import GroupNorm32, TorchConv
+from megaportraits_tpu_torch.ops.resize import linear_resize
+
+
+def _up2(x: torch.Tensor) -> torch.Tensor:
+    sizes = [s * 2 for s in x.shape[1:3]]
+    return linear_resize(x, sizes, axes=(1, 2), align_corners=True)
+
+
+class G2d(nn.Module):
+    def __init__(self, policy: Policy = DEFAULT_POLICY, arch: Arch = FULL,
+                 use_chain_kernel: bool = False, device=None):
+        super().__init__()
+        a = arch
+        self.policy = policy
+        self.arch = arch
+        self.use_chain_kernel = use_chain_kernel
+        kw = dict(policy=policy, device=device)
+        bkw = dict(kw, norm=a.norm)
+        self.reshape_conv = TorchConv(a.volume_channels, a.ch(1536), (1, 1), **kw)
+        self.conv1x1 = TorchConv(a.ch(1536), a.ch(512), (1, 1), **kw)
+        self.trunk_names = [f"res{i}" for i in range(a.g2d_blocks)]
+        for name in self.trunk_names:
+            self.add_module(name, ResBlock2D(a.ch(512), a.ch(512), **bkw))
+        self.up1 = ResBlock2D(a.ch(512), a.ch(256), **bkw)
+        self.up2 = ResBlock2D(a.ch(256), a.ch(128), **bkw)
+        self.up3 = ResBlock2D(a.ch(128), a.ch(64), **bkw)
+        self.norm = GroupNorm32()
+        self.final_conv = TorchConv(a.ch(64), 3, (3, 3), padding=1, **kw)
+
+    def trunk_chain_params(self):
+        """Stacked K2 parameters: weights [N,2,3,3,C,C] in the compute dtype,
+        BN-folded scales and shifts [N,2,C] in float32."""
+        ws, scs, shs = [], [], []
+        for name in self.trunk_names:
+            k1, k2, s1, t1, s2, t2 = getattr(self, name).chain_params()
+            ws.append(torch.stack([k1, k2]))
+            scs.append(torch.stack([s1, s2]))
+            shs.append(torch.stack([t1, t2]))
+        return torch.stack(ws), torch.stack(scs), torch.stack(shs)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.conv1x1(self.reshape_conv(x))
+        chain_ok = (self.use_chain_kernel and not train
+                    and self.arch.norm == "batch"
+                    and x.shape[1] % 8 == 0 and x.shape[2] % 8 == 0)
+        if chain_ok:
+            from megaportraits_tpu_torch.ops.kernels.resblock_chain import (
+                resblock_chain,
+            )
+
+            weights, scales, shifts = self.trunk_chain_params()
+            cdt = self.policy.compute_dtype
+            x = torch.stack([
+                resblock_chain(xi.contiguous(), weights, scales, shifts)
+                for xi in x.to(cdt)
+            ])
+        else:
+            for name in self.trunk_names:
+                x = getattr(self, name)(x, train)
+        x = self.up1(_up2(x), train)
+        x = self.up2(_up2(x), train)
+        x = self.up3(_up2(x), train)
+        x = self.final_conv(torch.relu(self.norm(x)))
+        return torch.sigmoid(x.float())

@@ -1,0 +1,124 @@
+"""Gbase — the stage-1 one-shot reenactment generator (counterpart of
+``megaportraits_tpu/models/gbase.py``).
+
+    vs, es = Eapp(xs)                      # volume + appearance descriptor
+    Rs, ts, zs = Emtn(xs); Rd, td, zd = Emtn(xd)
+    w_s2c = WarpGenerator(invert=True)(Rs, ts, zs, es)
+    vc = apply_warping_field(vs, w_s2c)    # -> canonical volume
+    vc2d = G3d(vc)
+    w_c2d = WarpGenerator(invert=False)(Rd, td, zd, es)
+    projected = sum over depth of apply_warping_field(vc2d, w_c2d)
+    xhat = G2d(projected)                  # [B, H, W, 3] in [0, 1]
+
+``encode_source`` + ``drive`` split this for streaming: everything that
+depends only on the source runs once, the rest once per driving frame.
+``build_gbase`` is the factory; it runs on the card unless asked otherwise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple, Union
+
+import torch
+from torch import nn
+
+from megaportraits_tpu_torch.core.arch import FULL, Arch, get_arch
+from megaportraits_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
+from megaportraits_tpu_torch.models.eapp import Eapp
+from megaportraits_tpu_torch.models.emtn import Emtn
+from megaportraits_tpu_torch.models.g2d import G2d
+from megaportraits_tpu_torch.models.g3d import G3d
+from megaportraits_tpu_torch.models.warpgen import WarpGenerator
+from megaportraits_tpu_torch.nn.layers import BatchNorm, init_parameters
+from megaportraits_tpu_torch.ops.resize import anti_alias_downsample
+from megaportraits_tpu_torch.ops.warp import apply_warping_field
+
+PYRAMID_SCALES = (0.5, 0.25)
+
+
+class Gbase(nn.Module):
+    def __init__(self, policy: Policy = DEFAULT_POLICY,
+                 warp_normalize_mode: str = "reference",
+                 rotation_input_size: int = 224,
+                 descriptor_input_size: int = 256,
+                 arch: Arch = FULL, device=None):
+        super().__init__()
+        self.policy = policy
+        # 'reference' replicates the reference's renormalization quirk
+        # (needed for checkpoint parity); 'standard' is grid+flow sampling.
+        self.warp_normalize_mode = warp_normalize_mode
+        kw = dict(policy=policy, arch=arch, device=device)
+        self.appearance_encoder = Eapp(**kw)
+        self.motion_encoder = Emtn(rotation_input_size=rotation_input_size,
+                                   descriptor_input_size=descriptor_input_size,
+                                   **kw)
+        self.warp_generator_s2c = WarpGenerator(invert=True, **kw)
+        self.warp_generator_c2d = WarpGenerator(invert=False, **kw)
+        self.g3d = G3d(**kw)
+        self.g2d = G2d(**kw)
+
+    def forward(self, xs: torch.Tensor, xd: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        vs, es = self.appearance_encoder(xs, train)
+        rs, ts, zs = self.motion_encoder(xs, train)
+        rd, td, zd = self.motion_encoder(xd, train)
+        xhat = self.synthesize(vs, es, rs, ts, zs, rd, td, zd, train)
+        return xhat, self.pyramids(xhat)
+
+    def synthesize(self, vs, es, rs, ts, zs, rd, td, zd, train: bool = False):
+        """Synthesis from precomputed appearance/motion descriptors."""
+        w_s2c = self.warp_generator_s2c(rs, ts, zs, es)
+        vc = apply_warping_field(vs, w_s2c, self.warp_normalize_mode)
+        vc2d = self.g3d(vc)
+        w_c2d = self.warp_generator_c2d(rd, td, zd, es)
+        vc2d_warped = apply_warping_field(vc2d, w_c2d, self.warp_normalize_mode)
+        projected = vc2d_warped.sum(dim=1)  # orthographic projection
+        return self.g2d(projected, train)
+
+    def encode_source(self, xs: torch.Tensor, train: bool = False):
+        """One-time source encoding for streaming reenactment: appearance
+        volume, source motion, source->canonical warp and G3d."""
+        vs, es = self.appearance_encoder(xs, train)
+        rs, ts, zs = self.motion_encoder(xs, train)
+        w_s2c = self.warp_generator_s2c(rs, ts, zs, es)
+        vc = apply_warping_field(vs, w_s2c, self.warp_normalize_mode)
+        return {"vc2d": self.g3d(vc), "es": es}
+
+    def drive(self, source_state, xd: torch.Tensor, train: bool = False):
+        """Per-driving-frame path given a precomputed source state."""
+        rd, td, zd = self.motion_encoder(xd, train)
+        w_c2d = self.warp_generator_c2d(rd, td, zd, source_state["es"])
+        vc2d_warped = apply_warping_field(source_state["vc2d"], w_c2d,
+                                          self.warp_normalize_mode)
+        return self.g2d(vc2d_warped.sum(dim=1), train)
+
+    def pyramids(self, xhat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {str(s): anti_alias_downsample(xhat, s) for s in PYRAMID_SCALES}
+
+
+def build_gbase(arch: Union[str, Arch] = "full", policy: Policy = DEFAULT_POLICY,
+                device: Union[str, torch.device] = DEFAULT_DEVICE, seed: int = 0,
+                **kwargs) -> Gbase:
+    """Gbase with seeded random weights on `device` (the card by default;
+    raises if there is none and the caller did not ask for the CPU)."""
+    dev = resolve_device(device)
+    model = Gbase(policy=policy, arch=get_arch(arch), device=dev, **kwargs)
+    return init_parameters(model, seed)
+
+
+def calibrate_batch_norm(model: Gbase, xs: torch.Tensor, xd: torch.Tensor) -> int:
+    """Set every BatchNorm's running statistics to the batch statistics of
+    one source/driving pair (random weights otherwise leave the eval path
+    on mean-0/var-1 statistics that saturate it). Leaves the model in
+    ``.eval()``; returns the number of BatchNorms."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model.drive(model.encode_source(xs, train=True), xd, train=True)
+    for bn in bns:
+        del bn.momentum  # back to the class default
+    model.eval()
+    return len(bns)

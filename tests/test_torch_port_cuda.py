@@ -1,0 +1,94 @@
+"""The CUDA kernels K1 and K2 against their plain versions, on the card.
+
+Marker ``cuda``; each test skips on a host without a card. This file
+imports neither JAX nor the JAX package, so it also runs on a machine with
+only PyTorch (the repo's conftest imports JAX; skip it there):
+
+    python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
+
+The plain version convolves in float32 with TF32 off; the kernel
+accumulates bf16 products in float32 and rounds once to bf16, so the two
+differ by bf16 rounding: 2 bf16 ulps of the output's magnitude
+(rtol 2**-7) plus atol 2e-2 for one conv; twice that for the 2-block chain.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
+from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+
+
+def _conv_inputs(seed, h, w, c, f):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(h, w, c)).astype(np.float32)
+    kern = (rng.normal(size=(3, 3, c, f)) / np.sqrt(9 * c)).astype(np.float32)
+    s = rng.uniform(0.5, 1.5, (f,)).astype(np.float32)
+    sh = (rng.normal(size=(f,)) * 0.1).astype(np.float32)
+    res = rng.normal(size=(h, w, f)).astype(np.float32)
+    return x, kern, s, sh, res
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(a, dev):
+    return torch.from_numpy(a).to(dev)
+
+
+def _bf16(a, dev):
+    return _t(a, dev).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64, 512, 512), (16, 16, 64, 64),
+                                   (10, 12, 32, 40)])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_k1_kernel_matches_plain_on_card(cuda, shape, with_residual):
+    h, w, c, f = shape
+    x, kern, s, sh, res = _conv_inputs(6, h, w, c, f)
+    args = (_bf16(x, cuda), _bf16(kern, cuda), _t(s, cuda), _t(sh, cuda),
+            _bf16(res, cuda) if with_residual else None)
+    before = k1.conv3x3_bn_act.launches
+    got = k1.conv3x3_bn_act(*args)
+    torch.cuda.synchronize()
+    assert k1.conv3x3_bn_act.launches == before + 1
+    want = k1.conv3x3_bn_act_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2**-7)
+
+
+@pytest.mark.cuda
+def test_k2_kernel_matches_plain_on_card(cuda):
+    rng = np.random.default_rng(7)
+    c = 512
+    x = rng.normal(size=(64, 64, c)).astype(np.float32)
+    wts = (rng.normal(size=(2, 2, 3, 3, c, c)) / np.sqrt(9 * c)).astype(np.float32)
+    sc = rng.uniform(0.4, 0.6, (2, 2, c)).astype(np.float32)
+    sh = (rng.normal(size=(2, 2, c)) * 0.05).astype(np.float32)
+    args = (_bf16(x, cuda), _bf16(wts, cuda), _t(sc, cuda), _t(sh, cuda))
+    before = (k1.conv3x3_bn_act.launches, k2.resblock_chain.launches)
+    got = k2.resblock_chain(*args)
+    torch.cuda.synchronize()
+    assert (k1.conv3x3_bn_act.launches, k2.resblock_chain.launches) == (
+        before[0] + 4, before[1] + 1)
+    want = k2.resblock_chain_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=4e-2, rtol=2**-6)
+
+
+@pytest.mark.cuda
+def test_k1_kernel_rejects_what_it_does_not_take(cuda):
+    x, kern, s, sh, _ = _conv_inputs(8, 8, 8, 32, 32)
+    with pytest.raises(TypeError):  # float32 activations
+        k1.conv3x3_bn_act(_t(x, cuda), _bf16(kern, cuda), _t(s, cuda),
+                          _t(sh, cuda))
+    x48, kern48, s48, sh48, _ = _conv_inputs(9, 8, 8, 48, 32)
+    with pytest.raises(ValueError):  # C % 32 != 0
+        k1.conv3x3_bn_act(_bf16(x48, cuda), _bf16(kern48, cuda), _t(s48, cuda),
+                          _t(sh48, cuda))
