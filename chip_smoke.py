@@ -9,17 +9,30 @@ Phases, in order; any failure exits non-zero:
   3. K1 (conv3x3_bn_act) against its plain version at 64x64x512 -> 512,
      bf16, with and without the residual: errors, kernel / plain / library
      (cuDNN conv + epilogue) times and the bound;
-  4. K2 (resblock_chain) likewise at 64x64x512, N=8;
+  4. K2 (resblock_chain) and K3 (fused_resblock_chain, the chain in one
+     launch) likewise at 64x64x512, N=8, on the same inputs; K3 also
+     against K2, on a ragged shape, and its launch count per call;
   5. the main path: FULL Gbase, 512x512, batch 1, bf16 compute, seeded
      random weights with BatchNorm running statistics calibrated once from
      batch statistics; ReenactmentSession.set_source, then 8 drive frames
      with the G2d trunk on K2; launch counts, output checks, one frame
      against the plain trunk, drive frames/s;
-  6. one JSON line listing every kernel with its numbers;
-  7. last line: {"ok": true, "device": {...}}.
+  6. K3's path, its own entry point (no model calls it, in JAX either):
+     fused_resblock_chain on the G2d trunk input of each of those frames
+     with the model's folded trunk parameters; launch counts, and each
+     result against K2's on the same input;
+  7. stage-2 HR serving: FULL Gbase + Genh (GHR), batch 1; set_source at
+     512, 4 drive frames at 512 with the trunk on K2, bilinear to 1024x1024
+     (align_corners=False), Genh at 1024; launch counts, output checks,
+     ms/frame and Genh's share of it;
+  8. stage-3 serving: FULL Student, 4 avatars, 1024x1024, batch 1; 4 frames
+     with two avatar indices; output checks, ms/frame;
+  9. one JSON line listing every kernel with its numbers;
+  10. last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 5 samples after 2 warm-ups. The plain
 versions are the float32 references (TF32 off for both cuDNN and matmul).
+The library yardsticks run cuDNN with cudnn.benchmark on.
 """
 
 import json
@@ -35,6 +48,10 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 FRAMES = 8
 TRUNK_BLOCKS = 8
+HR_FRAMES = 4
+HR_SIZE = 1024
+STUDENT_FRAMES = 4
+STUDENT_AVATARS = 4
 # One frame through the chain kernels vs the same frame through the plain
 # (cuDNN bf16) trunk. Both round activations to bf16, at different places,
 # across 16 convs, then 3 upsample blocks and a sigmoid; a first run on an
@@ -73,6 +90,17 @@ def time_ms(fn, reps=10):
     return statistics.median(samples)
 
 
+def library_ms(fn, reps=10):
+    """time_ms of a cuDNN yardstick with cudnn.benchmark on, so that the
+    library's fastest algorithm for the shape is timed (the warm-up calls
+    pick it), not the heuristic's choice of the moment."""
+    import torch
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                    deterministic=False, allow_tf32=False):
+        return time_ms(fn, reps)
+
+
 def bound_ms(flops, nbytes):
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -104,7 +132,6 @@ def conv3x3_library(x, w_oihw, scale, shift, residual=None):
 
 def phase_kernels(torch, dev):
     from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
-    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -135,7 +162,7 @@ def phase_kernels(torch, dev):
         out = torch.empty_like(got)
         ms = time_ms(lambda: k1.launch_conv3x3(x, w1, s1, t1, r, out, True))
         plain = time_ms(lambda: k1.conv3x3_bn_act_plain(x, w1, s1, t1, r))
-        lib = time_ms(lambda: conv3x3_library(x, w1_oihw, s1, t1, r))
+        lib = library_ms(lambda: conv3x3_library(x, w1_oihw, s1, t1, r))
         bms, by = bound_ms(flops, nbytes(x, w1, s1, t1, r, got))
         k1_rows.append(dict(residual=r is not None, max_abs_err=err, rel_err=rel,
                             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
@@ -145,20 +172,37 @@ def phase_kernels(torch, dev):
               f"plain {plain:.4f} ms, library {lib:.4f} ms, bound {bms:.4f} ms "
               f"({by}) -> {bms / ms:.1%} of bound")
 
+    chain_rows = phase_chains(torch, dev, gen, flops)
+    return k1_rows, chain_rows
+
+
+def chain_inputs(torch, dev, gen, h, w, c, n):
+    """Trunk-like chain inputs: variance-preserving weights, BN-like scales
+    and shifts."""
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    return (randn(h, w, c).bfloat16(),
+            (randn(n, 2, 3, 3, c, c) / (9 * c) ** 0.5).bfloat16(),
+            torch.rand(n, 2, c, device=dev, generator=gen) * 0.2 + 0.4,
+            randn(n, 2, c) * 0.05)
+
+
+def phase_chains(torch, dev, gen, conv_flops):
+    """K2 and K3 on the same trunk-shaped inputs: each against the plain
+    version, K3 against K2, K3 on a ragged shape; times and bounds."""
+    from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain_fused as k3
+
+    h = w = 64
+    c = 512
     n = TRUNK_BLOCKS
-    xs = randn(h, w, c).bfloat16()
-    wts = (randn(n, 2, 3, 3, c, c) / (9 * c) ** 0.5).bfloat16()
-    scs = torch.rand(n, 2, c, device=dev, generator=gen) * 0.2 + 0.4
-    shs = randn(n, 2, c) * 0.05
+    xs, wts, scs, shs = chain_inputs(torch, dev, gen, h, w, c, n)
+    x_before = xs.clone()
     wts_oihw = [[wts[b, i].permute(3, 2, 0, 1).contiguous() for i in range(2)]
                 for b in range(n)]
-    got = k2.resblock_chain(xs, wts, scs, shs)
-    torch.cuda.synchronize()
     want = k2.resblock_chain_plain(xs, wts, scs, shs)
-    err, rel = errors(got, want)
-    check(torch.isfinite(got.float()).all().item(), "K2 output not finite")
-    # 16 convs, each rounding to bf16; the errors compound through residuals.
-    check(rel <= 2 ** -5, f"K2 disagrees with its plain version: rel {rel}")
 
     def library_chain():
         cur = xs
@@ -167,16 +211,62 @@ def phase_kernels(torch, dev):
             cur = conv3x3_library(hh, wts_oihw[b][1], scs[b, 1], shs[b, 1], cur)
         return cur
 
-    ms = time_ms(lambda: k2.resblock_chain(xs, wts, scs, shs), reps=3)
     plain = time_ms(lambda: k2.resblock_chain_plain(xs, wts, scs, shs), reps=3)
-    lib = time_ms(library_chain, reps=3)
-    bms, by = bound_ms(flops * 2 * n, nbytes(xs, wts, scs, shs, got))
-    print(f"K2 resblock_chain 64x64x512 N={n}: max_abs_err {err:.6g} rel {rel:.3g}"
-          f" | kernel {ms:.4f} ms, plain {plain:.4f} ms, library (cuDNN chain) "
-          f"{lib:.4f} ms, bound {bms:.4f} ms ({by}) -> {bms / ms:.1%} of bound")
-    k2_row = dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain,
-                  library_ms=lib, bound_ms=bms, bound_by=by)
-    return k1_rows, k2_row
+    lib = library_ms(library_chain, reps=3)
+    rows = {}
+    outs = {}
+    for name, fn in (("K2", k2.resblock_chain), ("K3", k3.fused_resblock_chain)):
+        counts = (k1.conv3x3_bn_act.launches, fn.launches)
+        got = fn(xs, wts, scs, shs)
+        torch.cuda.synchronize()
+        delta = (k1.conv3x3_bn_act.launches - counts[0], fn.launches - counts[1])
+        err, rel = errors(got, want)
+        check(torch.isfinite(got.float()).all().item(), f"{name} output not finite")
+        # 16 convs, each rounding to bf16; the errors compound through residuals.
+        check(rel <= 2 ** -5, f"{name} disagrees with its plain version: rel {rel}")
+        ms = time_ms(lambda: fn(xs, wts, scs, shs), reps=3)
+        bms, by = bound_ms(conv_flops * 2 * n, nbytes(xs, wts, scs, shs, got))
+        print(f"{name} {fn.__name__} 64x64x512 N={n}: max_abs_err {err:.6g} "
+              f"rel {rel:.3g} | kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"(cuDNN chain) {lib:.4f} ms, bound {bms:.4f} ms ({by}) -> "
+              f"{bms / ms:.1%} of bound | one call launches K1 {delta[0]} times, "
+              f"itself {delta[1]}")
+        rows[name] = dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bms, bound_by=by, per_call=delta)
+        outs[name] = got
+    check(rows["K2"]["per_call"] == (2 * n, 1), f"K2 launches {rows['K2']['per_call']}")
+    check(rows["K3"]["per_call"] == (0, 1), f"K3 launches {rows['K3']['per_call']}")
+    check(torch.equal(xs, x_before), "a chain kernel wrote its input")
+    # K3 and K2 round to bf16 at the same places: they may differ from each
+    # other by no more than K2 differs from the float32 reference.
+    d32 = (outs["K3"].float() - outs["K2"].float()).abs().max().item()
+    print(f"K3 vs K2 on the same inputs: max abs {d32:.6g} (limit: K2's error "
+          f"{rows['K2']['max_abs_err']:.6g}); K3 grid {k3.grid_ctas(h, w, c)} CTAs")
+    check(d32 <= rows["K2"]["max_abs_err"], "K3 differs from K2")
+
+    # Ragged: 40x24 pixels, 256 channels, 2 blocks: 16 tiles a conv (8 pixel
+    # tiles, the last one half full, by 2 channel tiles), not a multiple of
+    # the SM count.
+    rh, rw, rc, rn = 40, 24, 256, 2
+    rargs = chain_inputs(torch, dev, gen, rh, rw, rc, rn)
+    rx_before = rargs[0].clone()
+    before = k3.fused_resblock_chain.launches
+    got = k3.fused_resblock_chain(*rargs)
+    ref2 = k2.resblock_chain(*rargs)
+    torch.cuda.synchronize()
+    check(k3.fused_resblock_chain.launches == before + 1, "K3 ragged launch count")
+    check(torch.equal(rargs[0], rx_before), "K3 wrote its input (ragged)")
+    want_r = k2.resblock_chain_plain(*rargs)
+    err_r, rel_r = errors(got, want_r)
+    err2_r, _ = errors(ref2, want_r)
+    d_r = (got.float() - ref2.float()).abs().max().item()
+    print(f"K3 ragged {rh}x{rw}x{rc} N={rn} (grid {k3.grid_ctas(rh, rw, rc)} "
+          f"CTAs): max_abs_err {err_r:.6g} rel {rel_r:.3g}; vs K2 {d_r:.6g} "
+          f"(K2's error {err2_r:.6g})")
+    check(rel_r <= 2 ** -5, f"K3 ragged disagrees with its plain version: {rel_r}")
+    check(d_r <= err2_r, "K3 ragged differs from K2")
+    rows["K3"]["max_abs_err"] = max(rows["K3"]["max_abs_err"], err_r)
+    return rows
 
 
 def smooth_image(torch, gen, dev, size):
@@ -189,12 +279,9 @@ def smooth_image(torch, gen, dev, size):
     return img.permute(0, 2, 3, 1).contiguous()
 
 
-def trunk_against_float32(torch, model, session, xd):
-    """The G2d trunk of one frame three ways on the same input and bf16
-    weights: K2, the plain bf16 blocks (cuDNN), and float32 activations
-    (K2's plain version on float32). K2 must be no further from float32
-    than twice the plain bf16 trunk is."""
-    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+def trunk_input(torch, model, session, xd):
+    """The G2d trunk's input [1, 64, 64, 512] for driving frame `xd`: the
+    drive path up to the trunk."""
     from megaportraits_tpu_torch.ops.warp import apply_warping_field
 
     g2d = model.g2d
@@ -204,7 +291,19 @@ def trunk_against_float32(torch, model, session, xd):
         w_c2d = model.warp_generator_c2d(rd, td, zd, state["es"])
         projected = apply_warping_field(state["vc2d"], w_c2d,
                                         model.warp_normalize_mode).sum(dim=1)
-        x = g2d.conv1x1(g2d.reshape_conv(projected))
+        return g2d.conv1x1(g2d.reshape_conv(projected))
+
+
+def trunk_against_float32(torch, model, session, xd):
+    """The G2d trunk of one frame three ways on the same input and bf16
+    weights: K2, the plain bf16 blocks (cuDNN), and float32 activations
+    (K2's plain version on float32). K2 must be no further from float32
+    than twice the plain bf16 trunk is."""
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+
+    g2d = model.g2d
+    x = trunk_input(torch, model, session, xd)
+    with torch.no_grad():
         weights, scales, shifts = g2d.trunk_chain_params()
         ref = k2.resblock_chain_plain(x[0].float(), weights.float(), scales, shifts)
         kern = k2.resblock_chain(x[0].contiguous(), weights, scales, shifts)
@@ -290,7 +389,163 @@ def phase_main_path(torch, dev):
     print(f"drive: {timings[True]:.3f} ms/frame = {1e3 / timings[True]:.2f} "
           f"frames/s with the trunk on K2; {timings[False]:.3f} ms/frame = "
           f"{1e3 / timings[False]:.2f} frames/s with the plain (cuDNN) trunk")
-    return launches
+    return launches, model, session, frames
+
+
+def phase_k3_path(torch, model, session, frames):
+    """K3's own entry point, as a user calls it: the chain in one launch on
+    the G2d trunk input of each drive frame, with the model's folded trunk
+    parameters. Counts are read around these calls only; each result is
+    then held against K2's on the same input."""
+    from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain_fused as k3
+
+    cdt = model.policy.compute_dtype
+    with torch.no_grad():
+        weights, scales, shifts = model.g2d.trunk_chain_params()
+        inputs = [trunk_input(torch, model, session, xd)[0].to(cdt).contiguous()
+                  for xd in frames]
+        torch.cuda.synchronize()
+        k1.conv3x3_bn_act.launches = 0
+        k2.resblock_chain.launches = 0
+        k3.fused_resblock_chain.launches = 0
+        outs = [k3.fused_resblock_chain(x, weights, scales, shifts) for x in inputs]
+        torch.cuda.synchronize()
+        launches = {"conv3x3_bn_act": k1.conv3x3_bn_act.launches,
+                    "resblock_chain": k2.resblock_chain.launches,
+                    "fused_resblock_chain": k3.fused_resblock_chain.launches}
+        print(f"K3 path launches over {len(frames)} trunk calls: {launches}")
+        check(launches == {"conv3x3_bn_act": 0, "resblock_chain": 0,
+                           "fused_resblock_chain": len(frames)},
+              f"K3 path launches {launches}")
+        worst = 0.0
+        for x, out in zip(inputs, outs):
+            check(torch.isfinite(out.float()).all().item(), "K3 trunk not finite")
+            ref = k2.resblock_chain(x, weights, scales, shifts)
+            want = k2.resblock_chain_plain(x.float(), weights.float(), scales, shifts)
+            d = (out.float() - ref.float()).abs().max().item()
+            e2 = (ref.float() - want).abs().max().item()
+            worst = max(worst, d)
+            check(d <= e2, f"K3 trunk differs from K2's by {d} (K2's error {e2})")
+    print(f"K3 path: each frame's trunk within K2's own error of K2's "
+          f"(max abs K3 - K2 {worst:.6g})")
+    return launches["fused_resblock_chain"]
+
+
+def phase_hr(torch, dev):
+    """Stage-2 HR serving: Gbase drive at 512, bilinear x2 to 1024, Genh."""
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
+    from megaportraits_tpu_torch.models.gbase import calibrate_batch_norm
+    from megaportraits_tpu_torch.models.genh import build_ghr
+    from megaportraits_tpu_torch.nn.layers import calibrate_batch_norm_with
+    from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+    from megaportraits_tpu_torch.ops.resize import linear_resize
+
+    size = 512
+    t0 = time.perf_counter()
+    model = build_ghr("full", policy=DEFAULT_POLICY, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.genh.parameters())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    xs = smooth_image(torch, gen, dev, size)
+    frames = [smooth_image(torch, gen, dev, size) for _ in range(HR_FRAMES)]
+    n_bn = calibrate_batch_norm(model.gbase, xs, frames[0])
+    session = ReenactmentSession(model=model.gbase, bn_mode="running")
+    model.gbase.g2d.use_chain_kernel = True
+    session.set_source(xs)
+
+    def upsample(xhat):
+        return linear_resize(xhat, (HR_SIZE, HR_SIZE), axes=(1, 2),
+                             align_corners=False)
+
+    n_bn += calibrate_batch_norm_with(
+        model.genh, lambda: model.genh(upsample(session(frames[0])), train=True))
+    model.eval()
+    torch.cuda.synchronize()
+    print(f"stage-2 HR: FULL Gbase + Genh ({n_params} Genh parameters), bf16 "
+          f"compute, {n_bn} BatchNorms calibrated, set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def frame(xd):
+        with torch.no_grad():
+            return model.genh(upsample(session(xd)))
+
+    k1.conv3x3_bn_act.launches = 0
+    k2.resblock_chain.launches = 0
+    outs = [frame(xd) for xd in frames]
+    torch.cuda.synchronize()
+    launches = {"conv3x3_bn_act": k1.conv3x3_bn_act.launches,
+                "resblock_chain": k2.resblock_chain.launches}
+    print(f"stage-2 HR launches over {HR_FRAMES} frames: {launches}")
+    check(launches == {"conv3x3_bn_act": 2 * TRUNK_BLOCKS * HR_FRAMES,
+                       "resblock_chain": HR_FRAMES}, f"HR launches {launches}")
+    for out in outs:
+        check(tuple(out.shape) == (1, HR_SIZE, HR_SIZE, 3), f"HR shape {out.shape}")
+        check(torch.isfinite(out).all().item(), "non-finite HR output")
+        check(out.min().item() >= -1.0 and out.max().item() <= 1.0,
+              "HR output outside [-1, 1]")
+    stack = torch.cat(outs)
+    saturated = (stack.abs() > 1 - 1e-3).float().mean().item()
+    print(f"HR outputs: std {stack.std().item():.5f}, mean {stack.mean().item():.5f},"
+          f" saturated share {saturated:.5f}")
+    check(stack.std().item() > 1e-3, "HR outputs are flat")
+
+    ms = time_ms(lambda: frame(frames[1]), reps=1)
+    up = upsample(session(frames[1]))
+    with torch.no_grad():
+        genh_ms = time_ms(lambda: model.genh(up), reps=1)
+    print(f"stage-2 HR: {ms:.3f} ms/frame = {1e3 / ms:.2f} frames/s at "
+          f"{HR_SIZE}x{HR_SIZE} (drive at {size} with the trunk on K2 + "
+          f"bilinear x2 + Genh); Genh alone {genh_ms:.3f} ms = "
+          f"{genh_ms / ms:.1%} of the frame")
+    return dict(ms=ms, genh_ms=genh_ms)
+
+
+def phase_student(torch, dev):
+    """Stage-3 serving: the Student at 1024, batch 1, per-avatar."""
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from megaportraits_tpu_torch.models.student import build_student
+    from megaportraits_tpu_torch.nn.layers import calibrate_batch_norm_with
+
+    t0 = time.perf_counter()
+    model = build_student(STUDENT_AVATARS, "full", policy=DEFAULT_POLICY,
+                          device=dev, seed=3)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    frames = [smooth_image(torch, gen, dev, HR_SIZE) for _ in range(STUDENT_FRAMES)]
+    avatars = [torch.tensor([a], device=dev) for a in (1, 3) * (STUDENT_FRAMES // 2)]
+    n_bn = calibrate_batch_norm_with(
+        model, lambda: model(frames[0], avatars[0], train=True))
+    torch.cuda.synchronize()
+    print(f"stage-3 Student: FULL, {STUDENT_AVATARS} avatars, {n_params} "
+          f"parameters, bf16 compute, {n_bn} BatchNorms calibrated, set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        outs = [model(xd, av) for xd, av in zip(frames, avatars)]
+        swapped = model(frames[0], avatars[1])
+    torch.cuda.synchronize()
+    for out in outs:
+        check(tuple(out.shape) == (1, HR_SIZE, HR_SIZE, 3),
+              f"Student shape {out.shape}")
+        check(torch.isfinite(out).all().item(), "non-finite Student output")
+        check(out.min().item() >= 0.0 and out.max().item() <= 1.0,
+              "Student output outside [0, 1]")
+    stack = torch.cat(outs)
+    avatar_diff = (swapped - outs[0]).abs().mean().item()
+    print(f"Student outputs: std {stack.std().item():.5f}, mean "
+          f"{stack.mean().item():.5f}; same frame, avatar {avatars[1].item()} "
+          f"vs {avatars[0].item()}: mean abs difference {avatar_diff:.5f}")
+    check(stack.std().item() > 1e-3, "Student outputs are flat")
+    check(avatar_diff > 1e-3, "two avatars give the same frame")
+    with torch.no_grad():
+        ms = time_ms(lambda: model(frames[1], avatars[1]), reps=1)
+    print(f"stage-3 Student: {ms:.3f} ms/frame = {1e3 / ms:.2f} frames/s at "
+          f"{HR_SIZE}x{HR_SIZE}, batch 1")
+    return dict(ms=ms)
 
 
 def main():
@@ -324,8 +579,14 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {src.name}: {line.strip()}")
 
-    k1_rows, k2_row = phase_kernels(torch, dev)
-    launches = phase_main_path(torch, dev)
+    k1_rows, chain_rows = phase_kernels(torch, dev)
+    launches, model, session, frames = phase_main_path(torch, dev)
+    k3_launches = phase_k3_path(torch, model, session, frames)
+    del model, session, frames
+    torch.cuda.empty_cache()
+    phase_hr(torch, dev)
+    torch.cuda.empty_cache()
+    phase_student(torch, dev)
 
     k1_main = k1_rows[0]
     kernels = [
@@ -337,14 +598,19 @@ def main():
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"],
              bound_ms=k1_main["bound_ms"], bound_by=k1_main["bound_by"],
              library_ms=k1_main["library_ms"]),
-        dict(name="resblock_chain", route="cuda",
-             source="megaportraits_tpu_torch/ops/kernels/resblock_chain.py",
-             replaces="megaportraits_tpu/ops/pallas/g2d_chain_v2.py:233",
-             launches=launches["resblock_chain"], max_abs_err=k2_row["max_abs_err"],
-             ms=k2_row["ms"], plain_ms=k2_row["plain_ms"],
-             bound_ms=k2_row["bound_ms"], bound_by=k2_row["bound_by"],
-             library_ms=k2_row["library_ms"]),
     ]
+    for name, source, replaces, n in (
+            ("resblock_chain", "megaportraits_tpu_torch/ops/kernels/resblock_chain.py",
+             "megaportraits_tpu/ops/pallas/g2d_chain_v2.py:233",
+             launches["resblock_chain"]),
+            ("fused_resblock_chain", "megaportraits_tpu_torch/csrc/resblock_chain_fused.cu",
+             "megaportraits_tpu/ops/pallas/g2d_chain.py:122", k3_launches)):
+        row = chain_rows["K2" if name == "resblock_chain" else "K3"]
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=n,
+                            max_abs_err=row["max_abs_err"], ms=row["ms"],
+                            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                            bound_by=row["bound_by"], library_ms=row["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

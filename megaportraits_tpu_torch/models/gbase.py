@@ -30,7 +30,7 @@ from megaportraits_tpu_torch.models.emtn import Emtn
 from megaportraits_tpu_torch.models.g2d import G2d
 from megaportraits_tpu_torch.models.g3d import G3d
 from megaportraits_tpu_torch.models.warpgen import WarpGenerator
-from megaportraits_tpu_torch.nn.layers import BatchNorm, init_parameters
+from megaportraits_tpu_torch.nn.layers import calibrate_batch_norm_with, init_parameters
 from megaportraits_tpu_torch.ops.resize import anti_alias_downsample
 from megaportraits_tpu_torch.ops.warp import apply_warping_field
 
@@ -108,17 +108,9 @@ def build_gbase(arch: Union[str, Arch] = "full", policy: Policy = DEFAULT_POLICY
 
 
 def calibrate_batch_norm(model: Gbase, xs: torch.Tensor, xd: torch.Tensor) -> int:
-    """Set every BatchNorm's running statistics to the batch statistics of
-    one source/driving pair (random weights otherwise leave the eval path
-    on mean-0/var-1 statistics that saturate it). Leaves the model in
-    ``.eval()``; returns the number of BatchNorms."""
-    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
-    for bn in bns:
-        bn.momentum = 1.0
-    model.train()
-    with torch.no_grad():
-        model.drive(model.encode_source(xs, train=True), xd, train=True)
-    for bn in bns:
-        del bn.momentum  # back to the class default
-    model.eval()
-    return len(bns)
+    """Calibrate every BatchNorm of `model` on one source/driving pair
+    (``nn.layers.calibrate_batch_norm_with``): ``encode_source`` and
+    ``drive`` with batch statistics. Returns the number of BatchNorms."""
+    return calibrate_batch_norm_with(
+        model, lambda: model.drive(model.encode_source(xs, train=True), xd,
+                                   train=True))

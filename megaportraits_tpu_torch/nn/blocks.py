@@ -3,13 +3,15 @@
 Channels-last in and out, like the JAX blocks. Parameter names follow the
 JAX module names so that ``utils/jax_bridge.py`` maps them one to one.
 
-``ResBlock2D`` has only the ``norm='batch'`` variant here; the GroupNorm
-variant and the SPADE / ResBlockBN blocks belong to later stages.
+The Student's blocks (``ResBlockBN``, ``SPADE``, ``SPADEResBlock``) carry
+the JAX package's fixes of the reference: SPADE's shared conv takes the
+feature width, and a width change gets a 1x1 shortcut.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
@@ -17,7 +19,9 @@ from megaportraits_tpu_torch.nn.layers import (
     AdaptiveGroupNorm,
     AffineGroupNorm,
     BatchNorm,
+    Embed,
     GroupNorm32,
+    InstanceNorm,
     TorchConv,
     WSConv,
 )
@@ -50,23 +54,26 @@ class ResBlockCustom(nn.Module):
         return self.conv(out1) + out2
 
 
-class ResBlock3DAdaptive(nn.Module):
-    """Reference ResBlock3D_Adaptive (NDHWC): conv-AGN-relu-conv-AGN,
-    1x1x1 residual conv when the width changes, relu. (The JAX block's
-    optional upsample is unused by every caller and not ported.)"""
+class ResBlock2DAdaptive(nn.Module):
+    """Reference ResBlock2D_Adaptive (NHWC): conv-AGN-relu-conv-AGN, 1x1
+    residual conv when the width changes, relu. (The JAX block's optional
+    upsample is unused by every caller and not ported.)"""
+
+    dims = 2
 
     def __init__(self, in_channels: int, out_channels: int,
                  policy: Policy = DEFAULT_POLICY, device=None):
         super().__init__()
-        self.conv1 = TorchConv(in_channels, out_channels, (3, 3, 3), padding=1,
+        k = (3,) * self.dims
+        self.conv1 = TorchConv(in_channels, out_channels, k, padding=1,
                                policy=policy, device=device)
         self.norm1 = AdaptiveGroupNorm(out_channels, policy=policy, device=device)
-        self.conv2 = TorchConv(out_channels, out_channels, (3, 3, 3), padding=1,
+        self.conv2 = TorchConv(out_channels, out_channels, k, padding=1,
                                policy=policy, device=device)
         self.norm2 = AdaptiveGroupNorm(out_channels, policy=policy, device=device)
         self.residual_conv = (
-            TorchConv(in_channels, out_channels, (1, 1, 1), policy=policy,
-                      device=device)
+            TorchConv(in_channels, out_channels, (1,) * self.dims,
+                      policy=policy, device=device)
             if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,6 +81,12 @@ class ResBlock3DAdaptive(nn.Module):
         out = self.norm2(self.conv2(out))
         residual = x if self.residual_conv is None else self.residual_conv(x)
         return torch.relu(out + residual)
+
+
+class ResBlock3DAdaptive(ResBlock2DAdaptive):
+    """Reference ResBlock3D_Adaptive: the same block over NDHWC."""
+
+    dims = 3
 
 
 class ResBlock3D(nn.Module):
@@ -107,10 +120,15 @@ def conv_weight_hwio(conv: TorchConv, dtype: torch.dtype) -> torch.Tensor:
 
 
 class ResBlock2D(nn.Module):
-    """Reference ResBlock2D with BatchNorm: conv3-BN-ReLU-conv3-BN
-    (+ a 1x1 conv + BN shortcut when the width changes) -> ReLU. The JAX
-    block's ``downsample`` option is unused and broken there (it strides
-    only the shortcut), so it is not ported.
+    """Reference ResBlock2D: conv3-norm-ReLU-conv3-norm (+ a 1x1 conv + norm
+    shortcut when the width changes) -> ReLU. The JAX block's ``downsample``
+    option is unused and broken there (it strides only the shortcut), so it
+    is not ported.
+
+    ``norm='batch'`` (the reference) uses BatchNorm (``bn1``, ``bn2``,
+    ``shortcut_bn``); ``norm='group'`` uses AffineGroupNorm(32) (``gn1``,
+    ``gn2``, ``shortcut_gn``), which has no batch statistics, so ``train``
+    changes nothing there.
 
     With ``use_pallas`` (the JAX switch's name) eligible blocks run in eval
     mode as two launches of kernel K1 (``ops/kernels/conv3x3.py``), BN
@@ -122,25 +140,27 @@ class ResBlock2D(nn.Module):
                  policy: Policy = DEFAULT_POLICY, use_pallas: bool = False,
                  norm: str = "batch", device=None):
         super().__init__()
-        if norm != "batch":
-            raise NotImplementedError(
-                f"ResBlock2D norm={norm!r}: only 'batch' is ported so far")
+        if norm not in ("batch", "group"):
+            raise ValueError(f"unknown norm {norm!r}; expected 'batch' or 'group'")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.policy = policy
         self.use_pallas = use_pallas
         self.norm = norm
         f = out_channels
+        norm_cls, prefix = ((BatchNorm, "bn") if norm == "batch"
+                            else (AffineGroupNorm, "gn"))
         self.conv1 = TorchConv(in_channels, f, (3, 3), padding=1, policy=policy,
                                device=device)
-        self.bn1 = BatchNorm(f, policy=policy, device=device)
+        self.add_module(f"{prefix}1", norm_cls(f, policy=policy, device=device))
         self.conv2 = TorchConv(f, f, (3, 3), padding=1, policy=policy,
                                device=device)
-        self.bn2 = BatchNorm(f, policy=policy, device=device)
+        self.add_module(f"{prefix}2", norm_cls(f, policy=policy, device=device))
         if in_channels != f:
             self.shortcut_conv = TorchConv(in_channels, f, (1, 1), policy=policy,
                                            device=device)
-            self.shortcut_bn = BatchNorm(f, policy=policy, device=device)
+            self.add_module(f"shortcut_{prefix}",
+                            norm_cls(f, policy=policy, device=device))
 
     def eligible(self, x: torch.Tensor) -> bool:
         """JAX ``ResBlock2D._eligible`` without the VMEM byte bound."""
@@ -161,6 +181,13 @@ class ResBlock2D(nn.Module):
                 s1, t1, s2, t2)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.norm == "group":
+            identity = x
+            if self.in_channels != self.out_channels:
+                identity = self.shortcut_gn(self.shortcut_conv(x))
+            out = torch.relu(self.gn1(self.conv1(x)))
+            return torch.relu(self.gn2(self.conv2(out)) + identity)
+
         identity = x
         if self.in_channels != self.out_channels:
             identity = self.shortcut_bn(self.shortcut_conv(x), train)
@@ -180,3 +207,95 @@ class ResBlock2D(nn.Module):
         out = torch.relu(self.bn1(self.conv1(x), train))
         out = self.bn2(self.conv2(out), train)
         return torch.relu(out + identity)
+
+
+class ResBlockBN(nn.Module):
+    """Reference Student/ResNet18 ResBlock: relu(BN(conv3)) twice, plus a
+    shortcut (1x1 conv stride 2 + BN when downsampling, 1x1 conv + BN when
+    the width changes, else the input), then ReLU once more."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 downsample: bool = False, policy: Policy = DEFAULT_POLICY,
+                 device=None):
+        super().__init__()
+        kw = dict(policy=policy, device=device)
+        stride = 2 if downsample else 1
+        self.shortcut_conv = self.shortcut_bn = None
+        if downsample or in_channels != out_channels:
+            self.shortcut_conv = TorchConv(in_channels, out_channels, (1, 1),
+                                           strides=stride, **kw)
+            self.shortcut_bn = BatchNorm(out_channels, **kw)
+        self.conv1 = TorchConv(in_channels, out_channels, (3, 3), strides=stride,
+                               padding=1, **kw)
+        self.bn1 = BatchNorm(out_channels, **kw)
+        self.conv2 = TorchConv(out_channels, out_channels, (3, 3), padding=1, **kw)
+        self.bn2 = BatchNorm(out_channels, **kw)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        shortcut = x
+        if self.shortcut_conv is not None:
+            shortcut = self.shortcut_bn(self.shortcut_conv(x), train)
+        out = torch.relu(self.bn1(self.conv1(x), train))
+        out = torch.relu(self.bn2(self.conv2(out), train))
+        return torch.relu(out + shortcut)
+
+
+class SPADE(nn.Module):
+    """Spatially-adaptive norm with per-avatar embeddings: InstanceNorm, a
+    shared conv (C -> 128) + ReLU plus the avatar's shared embedding, then
+    gamma/beta convs plus the avatar's gamma/beta embeddings;
+    ``normed * (1 + gamma) + beta``. ``avatar_index`` is [B] integers."""
+
+    def __init__(self, norm_nc: int, num_avatars: int,
+                 policy: Policy = DEFAULT_POLICY, device=None):
+        super().__init__()
+        kw = dict(policy=policy, device=device)
+        self.avatar_shared_emb = Embed(num_avatars, 128, **kw)
+        self.avatar_gamma_emb = Embed(num_avatars, norm_nc, **kw)
+        self.avatar_beta_emb = Embed(num_avatars, norm_nc, **kw)
+        self.norm = InstanceNorm()
+        self.conv_shared = TorchConv(norm_nc, 128, (3, 3), padding=1, **kw)
+        self.conv_gamma = TorchConv(128, norm_nc, (3, 3), padding=1, **kw)
+        self.conv_beta = TorchConv(128, norm_nc, (3, 3), padding=1, **kw)
+
+    def forward(self, x: torch.Tensor, avatar_index: torch.Tensor) -> torch.Tensor:
+        normed = self.norm(x)
+        shared = torch.relu(self.conv_shared(normed))
+        shared = shared + self.avatar_shared_emb(avatar_index)[:, None, None, :]
+        gamma = (self.conv_gamma(shared)
+                 + self.avatar_gamma_emb(avatar_index)[:, None, None, :])
+        beta = (self.conv_beta(shared)
+                + self.avatar_beta_emb(avatar_index)[:, None, None, :])
+        return normed * (1.0 + gamma) + beta
+
+
+class SPADEResBlock(nn.Module):
+    """Reference SPADEResBlock: two SPADE -> leaky_relu(0.2) -> conv3 steps
+    through ``min(in, out)`` channels, plus a learned bias-free 1x1 shortcut
+    (after its own SPADE) only when the width changes."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_avatars: int,
+                 policy: Policy = DEFAULT_POLICY, device=None):
+        super().__init__()
+        kw = dict(policy=policy, device=device)
+        middle = min(in_channels, out_channels)
+        self.norm_s = self.conv_s = None
+        if in_channels != out_channels:
+            self.norm_s = SPADE(in_channels, num_avatars, **kw)
+            self.conv_s = TorchConv(in_channels, out_channels, (1, 1),
+                                    use_bias=False, **kw)
+        self.norm_0 = SPADE(in_channels, num_avatars, **kw)
+        self.conv_0 = TorchConv(in_channels, middle, (3, 3), padding=1, **kw)
+        self.norm_1 = SPADE(middle, num_avatars, **kw)
+        self.conv_1 = TorchConv(middle, out_channels, (3, 3), padding=1, **kw)
+
+    def forward(self, x: torch.Tensor, avatar_index: torch.Tensor) -> torch.Tensor:
+        def actvn(t):
+            return F.leaky_relu(t, 0.2)
+
+        x_s = x
+        if self.conv_s is not None:
+            x_s = self.conv_s(self.norm_s(x, avatar_index))
+        dx = self.conv_0(actvn(self.norm_0(x, avatar_index)))
+        dx = self.conv_1(actvn(self.norm_1(dx, avatar_index)))
+        return x_s + dx

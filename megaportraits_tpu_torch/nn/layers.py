@@ -17,7 +17,7 @@ default conv/linear bounds (uniform +-1/sqrt(fan_in)).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -241,6 +241,21 @@ class AdaptiveGroupNorm(nn.Module):
         return normed * self.weight.to(normed.dtype) + self.bias.to(normed.dtype)
 
 
+class InstanceNorm(nn.Module):
+    """torch nn.InstanceNorm2d default: per-sample, per-channel statistics
+    over the spatial axes in float32, no affine, no running statistics."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        dims = tuple(range(1, xf.ndim - 1))
+        var, mean = torch.var_mean(xf, dim=dims, keepdim=True, correction=0)
+        return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis, eps 1e-5, float32 statistics.
 
@@ -294,3 +309,39 @@ class BatchNorm(nn.Module):
         scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         shift = self.bias.float() + (conv_bias.float() - self.running_mean.float()) * scale
         return scale, shift
+
+
+def calibrate_batch_norm_with(model: nn.Module, forward: Callable[[], object]) -> int:
+    """Set every BatchNorm's running statistics in `model` to the batch
+    statistics that ``forward()`` (a pass with ``train=True``) meets; random
+    weights otherwise leave the eval path on mean-0/var-1 statistics that
+    saturate it. Leaves the model in ``.eval()``; returns the number of
+    BatchNorms."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        forward()
+    for bn in bns:
+        del bn.momentum  # back to the class default
+    model.eval()
+    return len(bns)
+
+
+class Embed(nn.Embedding):
+    """flax ``nn.Embed``: a table drawn from N(0, 1) in the parameter dtype,
+    looked up in the compute dtype."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 policy: Policy = DEFAULT_POLICY, device=None):
+        super().__init__(num_embeddings, features, device=device,
+                         dtype=policy.param_dtype)
+        self.policy = policy
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.weight.normal_(generator=generator)
+
+    def forward(self, index: torch.Tensor) -> torch.Tensor:
+        return super().forward(index).to(self.policy.compute_dtype)

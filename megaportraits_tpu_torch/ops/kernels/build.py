@@ -1,8 +1,9 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/torch_kernels/<name>-<hash>.so`` at
-the root of the checkout, where ``<hash>`` covers the source and the flags,
-so an edited source is rebuilt and an unchanged one is reused. The sources
+the root of the checkout, where ``<hash>`` covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused. The sources
 have a plain C interface (no PyTorch headers), which keeps a build to
 seconds. ``build_all()`` starts one nvcc per source, all at once.
 
@@ -47,6 +48,8 @@ def sources() -> List[Path]:
 
 def library_path(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

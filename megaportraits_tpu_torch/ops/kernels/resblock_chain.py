@@ -18,7 +18,7 @@ launches. Bound on an H100 SXM for the 8-block 64x64x512 trunk: 309 GFLOP
 of bf16 products over 989 TFLOP/s is 0.313 ms; it is bound by the tensor
 cores. The activations (4 MB a map) stay in the 50 MB L2 between
 launches, which is the part of the TPU kernel's keep-on-chip design this
-first version keeps; a single persistent launch is later work.
+version keeps. The single-launch chain is K3 (``resblock_chain_fused.py``).
 
 ``resblock_chain.launches`` counts chain calls that launched kernels; the
 convolutions themselves count in ``conv3x3_bn_act.launches``.
@@ -35,7 +35,7 @@ from megaportraits_tpu_torch.ops.kernels.conv3x3 import (
 )
 
 
-def _check_chain(x, weights, scales, shifts):
+def check_chain(x, weights, scales, shifts):
     if x.ndim != 3:
         raise ValueError(f"expected x [H,W,C], got {tuple(x.shape)}")
     c = x.shape[2]
@@ -51,7 +51,7 @@ def resblock_chain_plain(x: torch.Tensor, weights: torch.Tensor,
                          scales: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: each conv in float32, activations stored in
     x.dtype between convs (as the kernel stores them)."""
-    _check_chain(x, weights, scales, shifts)
+    check_chain(x, weights, scales, shifts)
     for b in range(weights.shape[0]):
         h = conv3x3_bn_act_plain(x, weights[b, 0], scales[b, 0], shifts[b, 0],
                                  residual=None, relu=True)
@@ -64,7 +64,7 @@ def resblock_chain(x: torch.Tensor, weights: torch.Tensor, scales: torch.Tensor,
                    shifts: torch.Tensor) -> torch.Tensor:
     """K2: the CUDA kernel chain for CUDA tensors, the plain version for CPU
     tensors."""
-    _check_chain(x, weights, scales, shifts)
+    check_chain(x, weights, scales, shifts)
     if x.device.type == "cpu":
         return resblock_chain_plain(x, weights, scales, shifts)
     if x.device.type != "cuda":

@@ -11,8 +11,13 @@ JAX. Module names match between the two packages; the rules are:
     ``bn1_mean``... become ``conv1.kernel``, ``bn1.scale``, ``bn1.mean``...;
   * ``kernel`` -> ``weight``: conv HWIO/DHWIO -> OIHW/OIDHW (grouped convs
     too: both keep ``in/groups`` inputs per filter), dense (in, out) ->
-    (out, in); ``scale`` -> ``weight``; ``mean`` / ``var`` ->
-    ``running_mean`` / ``running_var``; other leaves keep their names.
+    (out, in); ``scale`` -> ``weight``; an ``nn.Embed`` table
+    ``embedding`` -> the ``weight`` of ``torch.nn.Embedding`` (both
+    [num, features]); ``mean`` / ``var`` -> ``running_mean`` /
+    ``running_var``; other leaves keep their names.
+
+Modules without parameters (InstanceNorm, GroupNorm32) have no leaves on
+either side.
 
 The two flattens that feed a dense layer (Eapp's [B,2,2,512] descriptor and
 Emtn's tiled expression pool) are computed in the same (h, w, c) order as
@@ -30,8 +35,8 @@ from torch import nn
 
 _WRAPPER = re.compile(r"^(Conv|Dense|BatchNorm)_\d+$")
 _PREFIXED = re.compile(r"^(.+)_(kernel|bias|scale|mean|var)$")
-_RENAME = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
-           "var": "running_var"}
+_RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+           "mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix=()):

@@ -174,5 +174,77 @@ def test_resblock2d_kernel_path_matches_jax_fused_path():
 
 
 def test_resblock2d_group_norm_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tb.ResBlock2D(32, 32, norm="group")
+    """The norms that are ported are 'batch' and 'group'; any other is
+    refused when the block is built."""
+    with pytest.raises(ValueError):
+        tb.ResBlock2D(32, 32, norm="layer")
+    gn = tb.ResBlock2D(32, 64, norm="group")
+    assert {"gn1.weight", "gn2.bias", "shortcut_gn.weight"} <= set(gn.state_dict())
+    assert not gn.eligible(torch.zeros(1, 8, 8, 32))
+
+
+def test_instance_norm():
+    x = uniform(np.random.default_rng(14), (2, 5, 6, 16), -2.0, 3.0)
+    np.testing.assert_allclose(n(tl.InstanceNorm()(t(x))),
+                               np.asarray(jl.InstanceNorm()(jnp.asarray(x))), **TOL)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 32), (32, 64)])
+@pytest.mark.parametrize("train", [False, True])
+def test_resblock2d_group_norm(cin, cout, train):
+    """norm='group': with and without the shortcut; ``train`` changes
+    nothing (GroupNorm has no batch statistics)."""
+    x = uniform(np.random.default_rng(15), (2, 8, 8, cin))
+    want, got, v, tmod = _run(jb.ResBlock2D(cout, policy=JP, norm="group"),
+                              tb.ResBlock2D(cin, cout, policy=TP, norm="group"),
+                              x, jkw=dict(train=train), tkw=dict(train=train))
+    assert "batch_stats" not in v
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 32), (64, 32)])
+def test_resblock2d_adaptive(cin, cout):
+    x = uniform(np.random.default_rng(16), (2, 6, 6, cin))
+    want, got, _, _ = _run(jb.ResBlock2DAdaptive(cout, policy=JP),
+                           tb.ResBlock2DAdaptive(cin, cout, policy=TP), x)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("cin,cout,downsample", [
+    (16, 16, False), (16, 24, False), (16, 32, True),
+])
+def test_resblock_bn(cin, cout, downsample):
+    """Eval mode with non-trivial running statistics: the identity, the
+    width-changing and the downsampling shortcut."""
+    x = uniform(np.random.default_rng(17), (2, 8, 8, cin))
+    want, got, _, tmod = _run(jb.ResBlockBN(cout, downsample=downsample, policy=JP),
+                              tb.ResBlockBN(cin, cout, downsample, policy=TP), x,
+                              stats_seed=18)
+    assert (tmod.shortcut_conv is None) == (cin == cout and not downsample)
+    assert got.shape == (2, 4 if downsample else 8, 4 if downsample else 8, cout)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def _avatars():
+    return dict(avatar_index=jnp.asarray([2, 0])), dict(avatar_index=torch.tensor([2, 0]))
+
+
+def test_spade():
+    x = uniform(np.random.default_rng(19), (2, 6, 6, 16))
+    jkw, tkw = _avatars()
+    want, got, _, _ = _run(jb.SPADE(3, policy=JP), tb.SPADE(16, 3, policy=TP), x,
+                           jkw=jkw, tkw=tkw)
+    assert not np.allclose(got[0], got[1])
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 16), (16, 24), (24, 16)])
+def test_spade_resblock(cin, cout):
+    """Without (same width) and with the learned 1x1 shortcut."""
+    x = uniform(np.random.default_rng(20), (2, 6, 6, cin))
+    jkw, tkw = _avatars()
+    want, got, v, tmod = _run(jb.SPADEResBlock(cout, 3, policy=JP),
+                              tb.SPADEResBlock(cin, cout, 3, policy=TP), x,
+                              jkw=jkw, tkw=tkw)
+    assert ("conv_s" in v["params"]) == (cin != cout) == (tmod.conv_s is not None)
+    np.testing.assert_allclose(got, want, **TOL)

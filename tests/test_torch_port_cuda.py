@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 and K2 against their plain versions, on the card.
+"""The CUDA kernels K1, K2 and K3 against their plain versions, on the card.
 
 Marker ``cuda``; each test skips on a host without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -9,7 +9,9 @@ only PyTorch (the repo's conftest imports JAX; skip it there):
 The plain version convolves in float32 with TF32 off; the kernel
 accumulates bf16 products in float32 and rounds once to bf16, so the two
 differ by bf16 rounding: 2 bf16 ulps of the output's magnitude
-(rtol 2**-7) plus atol 2e-2 for one conv; twice that for the 2-block chain.
+(rtol 2**-7) plus atol 2e-2 for one conv; twice that for a 2-block chain.
+K3 rounds to bf16 at the same places as K2 and sums each tile in the same
+order (the same tile routine), so the two agree exactly.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 
 from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
 from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+from megaportraits_tpu_torch.ops.kernels import resblock_chain_fused as k3
 
 
 def _conv_inputs(seed, h, w, c, f):
@@ -80,6 +83,45 @@ def test_k2_kernel_matches_plain_on_card(cuda):
         before[0] + 4, before[1] + 1)
     want = k2.resblock_chain_plain(*args)
     torch.testing.assert_close(got.float(), want.float(), atol=4e-2, rtol=2**-6)
+
+
+def _chain_args(seed, h, w, c, nb, dev):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(h, w, c)).astype(np.float32)
+    wts = (rng.normal(size=(nb, 2, 3, 3, c, c)) / np.sqrt(9 * c)).astype(np.float32)
+    sc = rng.uniform(0.4, 0.6, (nb, 2, c)).astype(np.float32)
+    sh = (rng.normal(size=(nb, 2, c)) * 0.05).astype(np.float32)
+    return (_bf16(x, dev), _bf16(wts, dev), _t(sc, dev), _t(sh, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64, 512, 2), (40, 24, 256, 2),
+                                   (16, 16, 128, 3)])
+def test_k3_kernel_matches_plain_and_k2_on_card(cuda, shape):
+    """One launch a call, none of K1's; the input is not written. 40x24x256
+    has 30 tiles a conv, not a multiple of the SM count."""
+    h, w, c, nb = shape
+    args = _chain_args(10, h, w, c, nb, cuda)
+    x_before = args[0].clone()
+    before = (k1.conv3x3_bn_act.launches, k3.fused_resblock_chain.launches)
+    got = k3.fused_resblock_chain(*args)
+    torch.cuda.synchronize()
+    assert (k1.conv3x3_bn_act.launches, k3.fused_resblock_chain.launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(args[0], x_before)
+    assert 1 <= k3.grid_ctas(h, w, c) <= -(-h * w // 128) * -(-c // 128)
+    want = k3.fused_resblock_chain_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=4e-2, rtol=2**-6)
+    torch.testing.assert_close(got, k2.resblock_chain(*args), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_k3_kernel_rejects_what_it_does_not_take(cuda):
+    x, wts, sc, sh = _chain_args(11, 8, 8, 32, 1, cuda)
+    with pytest.raises(TypeError):  # float32 activations
+        k3.fused_resblock_chain(x.float(), wts, sc, sh)
+    with pytest.raises(ValueError):  # no blocks
+        k3.fused_resblock_chain(x, wts[:0], sc[:0], sh[:0])
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-"""Kernels K1 (conv3x3_bn_act) and K2 (resblock_chain).
+"""Kernels K1 (conv3x3_bn_act), K2 (resblock_chain) and K3
+(fused_resblock_chain, the chain in one launch).
 
 On the CPU: the plain PyTorch versions against the JAX package's Pallas
 kernels in interpret mode, the way tests/test_pallas_conv.py runs them, in
@@ -17,10 +18,12 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from megaportraits_tpu.ops.pallas.conv2d import fused_conv3x3
+from megaportraits_tpu.ops.pallas.g2d_chain import fused_resblock_chain
 from megaportraits_tpu.ops.pallas.g2d_chain_v2 import fused_resblock_chain_v2
 
 from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
 from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+from megaportraits_tpu_torch.ops.kernels import resblock_chain_fused as k3
 
 from torch_port_utils import n, t
 
@@ -72,6 +75,34 @@ def test_k2_plain_matches_pallas_v2_interpret():
     got = k2.resblock_chain(t(x), t(wts), t(sc), t(sh))
     assert k2.resblock_chain.launches == before
     np.testing.assert_allclose(n(got), np.asarray(want), **TOL)
+
+
+def test_k3_plain_matches_pallas_chain_interpret():
+    """K3's CPU path against the JAX whole-chain kernel, run as
+    tests/test_pallas_conv.py runs it; no kernel counts move."""
+    x, wts, sc, sh = _chain_inputs(6, 16, 16, 128, 3)
+    with pltpu.force_tpu_interpret_mode():
+        want = fused_resblock_chain(jnp.asarray(x), jnp.asarray(wts),
+                                    jnp.asarray(sc), jnp.asarray(sh))
+    before = (k1.conv3x3_bn_act.launches, k2.resblock_chain.launches,
+              k3.fused_resblock_chain.launches)
+    got = k3.fused_resblock_chain(t(x), t(wts), t(sc), t(sh))
+    assert (k1.conv3x3_bn_act.launches, k2.resblock_chain.launches,
+            k3.fused_resblock_chain.launches) == before
+    np.testing.assert_allclose(n(got), np.asarray(want), **TOL)
+    torch.testing.assert_close(
+        got, k2.resblock_chain_plain(t(x), t(wts), t(sc), t(sh)), atol=0, rtol=0)
+
+
+def test_k3_rejects_bad_shapes_and_other_devices():
+    x, wts, sc, sh = _chain_inputs(7, 8, 8, 32, 2)
+    with pytest.raises(ValueError):
+        k3.fused_resblock_chain(t(x), t(wts)[:, :1], t(sc), t(sh))
+    with pytest.raises(ValueError):
+        k3.fused_resblock_chain(t(x)[None], t(wts), t(sc), t(sh))
+    meta = [t(a).to("meta") for a in (x, wts, sc, sh)]
+    with pytest.raises(ValueError, match="no kernel for device"):
+        k3.fused_resblock_chain(*meta)
 
 
 def test_k2_plain_is_k1_chain_with_zero_padded_h():

@@ -186,4 +186,10 @@ def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
         build_gbase("tiny")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ReenactmentSession(arch=tarch.TINY)
+    from megaportraits_tpu_torch.models.genh import build_genh, build_ghr
+    from megaportraits_tpu_torch.models.student import build_student
+
+    for build in (build_genh, build_ghr, lambda arch: build_student(2, arch)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build("tiny")
     assert device.resolve_device("cpu") == torch.device("cpu")

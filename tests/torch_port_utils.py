@@ -41,6 +41,32 @@ def init_jax(module, *inputs, seed=0, stats_seed=None, **kwargs):
     return v
 
 
+def numpy_init(module, *inputs, seed=0, stats_seed=None, **kwargs):
+    """A flax module's variables drawn with numpy from `seed`, without
+    compiling its ``init`` (``jax.eval_shape`` gives the tree): conv and
+    dense kernels uniform +-1/sqrt(fan_in) (torch's default), norm scales
+    and weights U(0.8, 1.2), embedding tables N(0, 1), other leaves (biases)
+    N(0, 0.05). `stats_seed` as in ``init_jax``."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *inputs, **kwargs)
+
+    def draw(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name.endswith("kernel"):
+            bound = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
+            a = rng.uniform(-bound, bound, s.shape)
+        elif name.endswith(("scale", "weight")):
+            a = rng.uniform(0.8, 1.2, s.shape)
+        elif name == "embedding":
+            a = rng.normal(size=s.shape)
+        else:
+            a = rng.normal(size=s.shape) * 0.05
+        return a.astype(np.float32)
+
+    v = jax.tree_util.tree_map_with_path(draw, unfreeze(shapes))
+    return randomize_batch_stats(v, stats_seed) if stats_seed is not None else v
+
+
 def bridged(torch_module, variables):
     """Load JAX variables into a torch module (strict) and return it."""
     return load_jax_variables(torch_module, variables)
