@@ -8,15 +8,18 @@ Phases, in order; any failure exits non-zero:
   2. build the CUDA kernels from csrc/ with nvcc (seconds printed);
   3. K1 (conv3x3_bn_act) against its plain version at 64x64x512 -> 512,
      bf16, with and without the residual: errors, kernel / plain / library
-     (cuDNN conv + epilogue) times and the bound;
+     times (cuDNN conv + epilogue, with its min and max, and the cuDNN conv
+     alone) and the bound; then at ragged shapes (errors only);
   4. K2 (resblock_chain) and K3 (fused_resblock_chain, the chain in one
-     launch) likewise at 64x64x512, N=8, on the same inputs; K3 also
-     against K2, on a ragged shape, and its launch count per call;
+     launch, still on the mma.sync tile routine) likewise at 64x64x512,
+     N=8, on the same inputs; K2 with and without dependent launches; both
+     on a ragged shape; K3 against K2; launch counts per call;
   5. the main path: FULL Gbase, 512x512, batch 1, bf16 compute, seeded
      random weights with BatchNorm running statistics calibrated once from
      batch statistics; ReenactmentSession.set_source, then 8 drive frames
-     with the G2d trunk on K2; launch counts, output checks, one frame
-     against the plain trunk, drive frames/s;
+     with the G2d trunk on K2; launch counts, the trunk operands folded
+     once, output checks, one frame against the plain trunk, the trunk's
+     time inside a frame, drive frames/s;
   6. K3's path, its own entry point (no model calls it, in JAX either):
      fused_resblock_chain on the G2d trunk input of each of those frames
      with the model's folded trunk parameters; launch counts, and each
@@ -30,9 +33,11 @@ Phases, in order; any failure exits non-zero:
   9. one JSON line listing every kernel with its numbers;
   10. last line: {"ok": true, "device": {...}}.
 
-Times are CUDA-event medians of 5 samples after 2 warm-ups. The plain
-versions are the float32 references (TF32 off for both cuDNN and matmul).
-The library yardsticks run cuDNN with cudnn.benchmark on.
+Times are CUDA-event medians of 5 samples after 2 warm-ups; the kernels,
+their plain versions and the library yardsticks are timed with their
+launches queued behind a spinning card (time_stats), the frames are not.
+The plain versions are the float32 references (TF32 off for both cuDNN and
+matmul). The library yardsticks run cuDNN with cudnn.benchmark on.
 """
 
 import json
@@ -71,8 +76,12 @@ def check(cond, msg):
         die(msg)
 
 
-def time_ms(fn, reps=10):
-    """Median over 5 samples of the mean of `reps` back-to-back calls."""
+def time_stats(fn, reps=10, queued=False):
+    """(median, min, max) over 5 samples of the mean of `reps` back-to-back
+    calls, in ms, after 2 warm-up calls. With `queued`, the card first spins
+    for about a millisecond while the host enqueues the calls, so that a
+    kernel shorter than its own launch call is timed on the device and not
+    by the rate at which the host can launch it."""
     import torch
 
     for _ in range(2):
@@ -81,24 +90,30 @@ def time_ms(fn, reps=10):
     for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)
         start.record()
         for _ in range(reps):
             fn()
         end.record()
         torch.cuda.synchronize()
         samples.append(start.elapsed_time(end) / reps)
-    return statistics.median(samples)
+    return statistics.median(samples), min(samples), max(samples)
 
 
-def library_ms(fn, reps=10):
-    """time_ms of a cuDNN yardstick with cudnn.benchmark on, so that the
+def time_ms(fn, reps=10, queued=False):
+    return time_stats(fn, reps, queued)[0]
+
+
+def library_stats(fn, reps=10):
+    """time_stats of a cuDNN yardstick with cudnn.benchmark on, so that the
     library's fastest algorithm for the shape is timed (the warm-up calls
     pick it), not the heuristic's choice of the moment."""
     import torch
 
     with torch.backends.cudnn.flags(enabled=True, benchmark=True,
                                     deterministic=False, allow_tf32=False):
-        return time_ms(fn, reps)
+        return time_stats(fn, reps, queued=True)
 
 
 def bound_ms(flops, nbytes):
@@ -130,7 +145,25 @@ def conv3x3_library(x, w_oihw, scale, shift, residual=None):
     return torch.relu(y).to(x.dtype)
 
 
+# K1's ragged shapes: C and F below and off the 64-wide boxes, images
+# narrower and wider than a pixel box, a last tile of one row or column.
+K1_RAGGED = [(10, 12, 32, 40), (16, 16, 64, 64), (40, 24, 256, 256),
+             (9, 65, 96, 136)]
+
+
+def k1_inputs(torch, dev, gen, h, w, c, f):
+    """Variance-preserving weights keep bf16 activations in range."""
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    return (randn(h, w, c).bfloat16(), (randn(3, 3, c, f) / (9 * c) ** 0.5).bfloat16(),
+            torch.rand(f, device=dev, generator=gen) * 0.5 + 0.5, randn(f) * 0.1,
+            randn(h, w, f).bfloat16())
+
+
 def phase_kernels(torch, dev):
+    import torch.nn.functional as F
+
     from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
 
     gen = torch.Generator(device=dev)
@@ -138,17 +171,11 @@ def phase_kernels(torch, dev):
     h = w = 64
     c = 512
 
-    def randn(*shape):
-        return torch.randn(*shape, device=dev, generator=gen)
-
-    # Variance-preserving weights keep bf16 activations in range.
-    x = randn(h, w, c).bfloat16()
-    w1 = (randn(3, 3, c, c) / (9 * c) ** 0.5).bfloat16()
-    s1 = torch.rand(c, device=dev, generator=gen) * 0.5 + 0.5
-    t1 = randn(c) * 0.1
-    res = randn(h, w, c).bfloat16()
+    x, w1, s1, t1, res = k1_inputs(torch, dev, gen, h, w, c, c)
     w1_oihw = w1.permute(3, 2, 0, 1).contiguous()
+    x_nchw = x.permute(2, 0, 1)[None]
     flops = 2.0 * h * w * c * c * 9
+    conv_only = library_stats(lambda: F.conv2d(x_nchw, w1_oihw, padding=1))
 
     k1_rows = []
     for r in (None, res):
@@ -160,17 +187,38 @@ def phase_kernels(torch, dev):
         # One conv output rounds once to bf16 (8 bits): 2 ulps of the max.
         check(rel <= 2 ** -7, f"K1 disagrees with its plain version: rel {rel}")
         out = torch.empty_like(got)
-        ms = time_ms(lambda: k1.launch_conv3x3(x, w1, s1, t1, r, out, True))
-        plain = time_ms(lambda: k1.conv3x3_bn_act_plain(x, w1, s1, t1, r))
-        lib = library_ms(lambda: conv3x3_library(x, w1_oihw, s1, t1, r))
+        ms = time_ms(lambda: k1.launch_conv3x3(x, w1, s1, t1, r, out, True),
+                     queued=True)
+        plain = time_ms(lambda: k1.conv3x3_bn_act_plain(x, w1, s1, t1, r),
+                        queued=True)
+        lib, lib_lo, lib_hi = library_stats(
+            lambda: conv3x3_library(x, w1_oihw, s1, t1, r))
         bms, by = bound_ms(flops, nbytes(x, w1, s1, t1, r, got))
         k1_rows.append(dict(residual=r is not None, max_abs_err=err, rel_err=rel,
                             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                             bound_by=by))
         print(f"K1 conv3x3_bn_act 64x64x512->512 residual={r is not None}: "
               f"max_abs_err {err:.6g} rel {rel:.3g} | kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, library {lib:.4f} ms, bound {bms:.4f} ms "
+              f"plain {plain:.4f} ms, library {lib:.4f} ms (min {lib_lo:.4f}, "
+              f"max {lib_hi:.4f}; the cuDNN conv alone {conv_only[0]:.4f}, min "
+              f"{conv_only[1]:.4f}, max {conv_only[2]:.4f}), bound {bms:.4f} ms "
               f"({by}) -> {bms / ms:.1%} of bound")
+    staged = k1.staged_bytes(h, w, c, c)
+    print(f"K1 loads {staged / 1e6:.1f} MB a conv from L2 into shared memory "
+          f"({staged / nbytes(x, w1):.1f} times x and w), "
+          f"{staged / 1e9 / k1_rows[0]['ms']:.2f} TB/s at the kernel's time")
+
+    for rh, rw, rc, rf in K1_RAGGED:
+        xr, wr, sr, tr, rr = k1_inputs(torch, dev, gen, rh, rw, rc, rf)
+        for r in (None, rr):
+            got = k1.conv3x3_bn_act(xr, wr, sr, tr, r)
+            torch.cuda.synchronize()
+            err, rel = errors(got, k1.conv3x3_bn_act_plain(xr, wr, sr, tr, r))
+            print(f"K1 ragged {rh}x{rw}x{rc}->{rf} (box {k1.tile_box(rh, rw)}) "
+                  f"residual={r is not None}: max_abs_err {err:.6g} rel {rel:.3g}")
+            check(torch.isfinite(got.float()).all().item(), "K1 ragged not finite")
+            check(rel <= 2 ** -7, f"K1 ragged disagrees with its plain version: {rel}")
+            k1_rows[0]["max_abs_err"] = max(k1_rows[0]["max_abs_err"], err)
 
     chain_rows = phase_chains(torch, dev, gen, flops)
     return k1_rows, chain_rows
@@ -190,7 +238,9 @@ def chain_inputs(torch, dev, gen, h, w, c, n):
 
 def phase_chains(torch, dev, gen, conv_flops):
     """K2 and K3 on the same trunk-shaped inputs: each against the plain
-    version, K3 against K2, K3 on a ragged shape; times and bounds."""
+    version, K3 against K2, both on a ragged shape; times and bounds. K3
+    still runs the mma.sync tile routine that K2 ran before it moved to
+    TMA and wgmma, so K3 beside K2 is old against new on the same inputs."""
     from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
     from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
     from megaportraits_tpu_torch.ops.kernels import resblock_chain_fused as k3
@@ -211,8 +261,9 @@ def phase_chains(torch, dev, gen, conv_flops):
             cur = conv3x3_library(hh, wts_oihw[b][1], scs[b, 1], shs[b, 1], cur)
         return cur
 
-    plain = time_ms(lambda: k2.resblock_chain_plain(xs, wts, scs, shs), reps=3)
-    lib = library_ms(library_chain, reps=3)
+    plain = time_ms(lambda: k2.resblock_chain_plain(xs, wts, scs, shs), reps=3,
+                    queued=True)
+    lib, lib_lo, lib_hi = library_stats(library_chain, reps=3)
     rows = {}
     outs = {}
     for name, fn in (("K2", k2.resblock_chain), ("K3", k3.fused_resblock_chain)):
@@ -224,11 +275,12 @@ def phase_chains(torch, dev, gen, conv_flops):
         check(torch.isfinite(got.float()).all().item(), f"{name} output not finite")
         # 16 convs, each rounding to bf16; the errors compound through residuals.
         check(rel <= 2 ** -5, f"{name} disagrees with its plain version: rel {rel}")
-        ms = time_ms(lambda: fn(xs, wts, scs, shs), reps=3)
+        ms = time_ms(lambda: fn(xs, wts, scs, shs), reps=3, queued=True)
         bms, by = bound_ms(conv_flops * 2 * n, nbytes(xs, wts, scs, shs, got))
         print(f"{name} {fn.__name__} 64x64x512 N={n}: max_abs_err {err:.6g} "
               f"rel {rel:.3g} | kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-              f"(cuDNN chain) {lib:.4f} ms, bound {bms:.4f} ms ({by}) -> "
+              f"(cuDNN chain) {lib:.4f} ms (min {lib_lo:.4f}, max {lib_hi:.4f}), "
+              f"bound {bms:.4f} ms ({by}) -> "
               f"{bms / ms:.1%} of bound | one call launches K1 {delta[0]} times, "
               f"itself {delta[1]}")
         rows[name] = dict(max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain,
@@ -237,12 +289,25 @@ def phase_chains(torch, dev, gen, conv_flops):
     check(rows["K2"]["per_call"] == (2 * n, 1), f"K2 launches {rows['K2']['per_call']}")
     check(rows["K3"]["per_call"] == (0, 1), f"K3 launches {rows['K3']['per_call']}")
     check(torch.equal(xs, x_before), "a chain kernel wrote its input")
-    # K3 and K2 round to bf16 at the same places: they may differ from each
-    # other by no more than K2 differs from the float32 reference.
+    # K3 and K2 round to bf16 at the same places but sum in another order
+    # (different tile routines): they may differ from each other by no more
+    # than the sum of their errors against the float32 plain version.
     d32 = (outs["K3"].float() - outs["K2"].float()).abs().max().item()
-    print(f"K3 vs K2 on the same inputs: max abs {d32:.6g} (limit: K2's error "
-          f"{rows['K2']['max_abs_err']:.6g}); K3 grid {k3.grid_ctas(h, w, c)} CTAs")
-    check(d32 <= rows["K2"]["max_abs_err"], "K3 differs from K2")
+    limit = rows["K2"]["max_abs_err"] + rows["K3"]["max_abs_err"]
+    print(f"K3 vs K2 on the same inputs: max abs {d32:.6g} (limit: the sum of "
+          f"their errors {limit:.6g}); K3 grid {k3.grid_ctas(h, w, c)} CTAs")
+    check(d32 <= limit, "K3 differs from K2")
+
+    # The same chain without programmatic dependent launches, in turns.
+    pdl = {True: [], False: []}
+    for dependent in (True, False, False, True):
+        k2.resblock_chain.dependent_launch = dependent
+        pdl[dependent].append(
+            time_ms(lambda: k2.resblock_chain(xs, wts, scs, shs), reps=3,
+                    queued=True))
+    k2.resblock_chain.dependent_launch = True
+    print(f"K2 with dependent launches {pdl[True][0]:.4f} and {pdl[True][1]:.4f} "
+          f"ms, without {pdl[False][0]:.4f} and {pdl[False][1]:.4f} ms")
 
     # Ragged: 40x24 pixels, 256 channels, 2 blocks: 16 tiles a conv (8 pixel
     # tiles, the last one half full, by 2 channel tiles), not a multiple of
@@ -250,21 +315,29 @@ def phase_chains(torch, dev, gen, conv_flops):
     rh, rw, rc, rn = 40, 24, 256, 2
     rargs = chain_inputs(torch, dev, gen, rh, rw, rc, rn)
     rx_before = rargs[0].clone()
-    before = k3.fused_resblock_chain.launches
+    before = (k3.fused_resblock_chain.launches, k1.conv3x3_bn_act.launches,
+              k2.resblock_chain.launches)
     got = k3.fused_resblock_chain(*rargs)
+    torch.cuda.synchronize()
+    check(k3.fused_resblock_chain.launches == before[0] + 1
+          and k1.conv3x3_bn_act.launches == before[1], "K3 ragged launch count")
     ref2 = k2.resblock_chain(*rargs)
     torch.cuda.synchronize()
-    check(k3.fused_resblock_chain.launches == before + 1, "K3 ragged launch count")
-    check(torch.equal(rargs[0], rx_before), "K3 wrote its input (ragged)")
+    check((k1.conv3x3_bn_act.launches, k2.resblock_chain.launches)
+          == (before[1] + 2 * rn, before[2] + 1), "K2 ragged launch count")
+    check(torch.equal(rargs[0], rx_before), "a chain kernel wrote its input (ragged)")
     want_r = k2.resblock_chain_plain(*rargs)
     err_r, rel_r = errors(got, want_r)
-    err2_r, _ = errors(ref2, want_r)
+    err2_r, rel2_r = errors(ref2, want_r)
     d_r = (got.float() - ref2.float()).abs().max().item()
-    print(f"K3 ragged {rh}x{rw}x{rc} N={rn} (grid {k3.grid_ctas(rh, rw, rc)} "
-          f"CTAs): max_abs_err {err_r:.6g} rel {rel_r:.3g}; vs K2 {d_r:.6g} "
-          f"(K2's error {err2_r:.6g})")
+    print(f"ragged {rh}x{rw}x{rc} N={rn}: K2 (box {k1.tile_box(rh, rw)}) "
+          f"max_abs_err {err2_r:.6g} rel {rel2_r:.3g}; K3 (grid "
+          f"{k3.grid_ctas(rh, rw, rc)} CTAs) max_abs_err {err_r:.6g} rel "
+          f"{rel_r:.3g}; K3 vs K2 {d_r:.6g} (limit: the sum of their errors)")
+    check(rel2_r <= 2 ** -5, f"K2 ragged disagrees with its plain version: {rel2_r}")
     check(rel_r <= 2 ** -5, f"K3 ragged disagrees with its plain version: {rel_r}")
-    check(d_r <= err2_r, "K3 ragged differs from K2")
+    check(d_r <= err_r + err2_r, "K3 ragged differs from K2")
+    rows["K2"]["max_abs_err"] = max(rows["K2"]["max_abs_err"], err2_r)
     rows["K3"]["max_abs_err"] = max(rows["K3"]["max_abs_err"], err_r)
     return rows
 
@@ -348,11 +421,19 @@ def phase_main_path(torch, dev):
     k1.conv3x3_bn_act.launches = 0
     k2.resblock_chain.launches = 0
     session.set_source(xs)
-    outs = [session(xd) for xd in frames]
+    folds_before = model.g2d.trunk_cache.folds
+    outs = [session(frames[0])]
+    folds_first = model.g2d.trunk_cache.folds - folds_before
+    outs += [session(xd) for xd in frames[1:]]
     torch.cuda.synchronize()
     launches = {"conv3x3_bn_act": k1.conv3x3_bn_act.launches,
                 "resblock_chain": k2.resblock_chain.launches}
-    print(f"main path launches over {FRAMES} drive frames: {launches}")
+    folds_later = model.g2d.trunk_cache.folds - folds_before - folds_first
+    print(f"main path launches over {FRAMES} drive frames: {launches}; trunk "
+          f"operands folded {folds_first} time(s) in the first frame, "
+          f"{folds_later} in the {FRAMES - 1} after it")
+    check(folds_first == 1, f"the first frame folded {folds_first} times")
+    check(folds_later == 0, f"later frames folded {folds_later} times")
     check(launches["resblock_chain"] == FRAMES,
           f"K2 ran {launches['resblock_chain']} times, want {FRAMES}")
     check(launches["conv3x3_bn_act"] == 2 * TRUNK_BLOCKS * FRAMES,
@@ -381,11 +462,33 @@ def phase_main_path(torch, dev):
     check(diff.max().item() <= FRAME_MAX_ABS, "chain frame differs (max)")
     check(diff.mean().item() <= FRAME_MEAN_ABS, "chain frame differs (mean)")
 
-    timings = {}
+    # The trunk's time inside a frame: CUDA events around G2d.trunk, the
+    # operand cache warm.
+    trunk_events = []
+    g2d_trunk = model.g2d.trunk
+
+    def timed_trunk(x, train=False):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = g2d_trunk(x, train)
+        end.record()
+        trunk_events.append((start, end))
+        return out
+
+    timings, trunk_ms = {}, {}
+    model.g2d.trunk = timed_trunk
     for chain in (True, False):
         model.g2d.use_chain_kernel = chain
+        trunk_events.clear()
         timings[chain] = time_ms(lambda: session(frames[1]), reps=1)
+        trunk_ms[chain] = statistics.median(
+            a.elapsed_time(b) for a, b in trunk_events[2:])
+    del model.g2d.trunk  # back to the class's method
     model.g2d.use_chain_kernel = True
+    print(f"G2d trunk inside a drive frame: {trunk_ms[True]:.3f} ms on K2 "
+          f"(operands cached), {trunk_ms[False]:.3f} ms on the plain (cuDNN) "
+          f"blocks")
     print(f"drive: {timings[True]:.3f} ms/frame = {1e3 / timings[True]:.2f} "
           f"frames/s with the trunk on K2; {timings[False]:.3f} ms/frame = "
           f"{1e3 / timings[False]:.2f} frames/s with the plain (cuDNN) trunk")
@@ -403,7 +506,7 @@ def phase_k3_path(torch, model, session, frames):
 
     cdt = model.policy.compute_dtype
     with torch.no_grad():
-        weights, scales, shifts = model.g2d.trunk_chain_params()
+        weights, scales, shifts = model.g2d.cached_trunk_chain_params()
         inputs = [trunk_input(torch, model, session, xd)[0].to(cdt).contiguous()
                   for xd in frames]
         torch.cuda.synchronize()
@@ -426,10 +529,13 @@ def phase_k3_path(torch, model, session, frames):
             want = k2.resblock_chain_plain(x.float(), weights.float(), scales, shifts)
             d = (out.float() - ref.float()).abs().max().item()
             e2 = (ref.float() - want).abs().max().item()
+            e3 = (out.float() - want).abs().max().item()
             worst = max(worst, d)
-            check(d <= e2, f"K3 trunk differs from K2's by {d} (K2's error {e2})")
-    print(f"K3 path: each frame's trunk within K2's own error of K2's "
-          f"(max abs K3 - K2 {worst:.6g})")
+            # Another order of summation: the sum of both errors, not bits.
+            check(d <= e2 + e3, f"K3 trunk differs from K2's by {d} (their "
+                                f"errors {e3} and {e2})")
+    print(f"K3 path: each frame's trunk within the sum of K2's and K3's errors "
+          f"of K2's (max abs K3 - K2 {worst:.6g})")
     return launches["fused_resblock_chain"]
 
 
@@ -591,7 +697,7 @@ def main():
     k1_main = k1_rows[0]
     kernels = [
         dict(name="conv3x3_bn_act", route="cuda",
-             source="megaportraits_tpu_torch/csrc/conv3x3_bn_act.cu",
+             source="megaportraits_tpu_torch/csrc/conv3x3_wgmma.cuh",
              replaces="megaportraits_tpu/ops/pallas/conv2d.py:65",
              launches=launches["conv3x3_bn_act"],
              max_abs_err=max(r["max_abs_err"] for r in k1_rows),
@@ -600,7 +706,7 @@ def main():
              library_ms=k1_main["library_ms"]),
     ]
     for name, source, replaces, n in (
-            ("resblock_chain", "megaportraits_tpu_torch/ops/kernels/resblock_chain.py",
+            ("resblock_chain", "megaportraits_tpu_torch/csrc/conv3x3_bn_act.cu",
              "megaportraits_tpu/ops/pallas/g2d_chain_v2.py:233",
              launches["resblock_chain"]),
             ("fused_resblock_chain", "megaportraits_tpu_torch/csrc/resblock_chain_fused.cu",

@@ -8,7 +8,9 @@ ResBlock2D 512->256->128->64) -> GN+ReLU+3x3 conv-3 -> sigmoid in float32
 With ``use_chain_kernel`` the trunk runs through kernel K2
 (``ops/kernels/resblock_chain.py``) under the JAX conditions: not training,
 norm 'batch', H % 8 == 0 and W % 8 == 0; BatchNorm folded into per-conv
-scale/shift; one call per sample.
+scale/shift; one call per sample. The folded, stacked operands are kept
+between calls (``cached_trunk_chain_params``) and folded again only after a
+weight or a BatchNorm statistic of the trunk changed.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from torch import nn
 
 from megaportraits_tpu_torch.core.arch import FULL, Arch
 from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
-from megaportraits_tpu_torch.nn.blocks import ResBlock2D
+from megaportraits_tpu_torch.nn.blocks import OperandCache, ResBlock2D
 from megaportraits_tpu_torch.nn.layers import GroupNorm32, TorchConv
 from megaportraits_tpu_torch.ops.resize import linear_resize
 
@@ -48,6 +50,7 @@ class G2d(nn.Module):
         self.up3 = ResBlock2D(a.ch(128), a.ch(64), **bkw)
         self.norm = GroupNorm32()
         self.final_conv = TorchConv(a.ch(64), 3, (3, 3), padding=1, **kw)
+        self.trunk_cache = OperandCache()
 
     def trunk_chain_params(self):
         """Stacked K2 parameters: weights [N,2,3,3,C,C] in the compute dtype,
@@ -60,8 +63,17 @@ class G2d(nn.Module):
             shs.append(torch.stack([t1, t2]))
         return torch.stack(ws), torch.stack(scs), torch.stack(shs)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = self.conv1x1(self.reshape_conv(x))
+    def cached_trunk_chain_params(self):
+        """``trunk_chain_params()``, folded again only after a conv weight or
+        bias, a BatchNorm weight or bias or a running statistic of the trunk
+        changed; ``trunk_cache.folds`` counts the folds."""
+        sources = [t for name in self.trunk_names
+                   for t in getattr(self, name).chain_sources()]
+        return self.trunk_cache.get(sources, self.trunk_chain_params,
+                                    self.policy.compute_dtype)
+
+    def trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The ResBlock2D trunk on the 1x1 head's output [B, h, w, C]."""
         chain_ok = (self.use_chain_kernel and not train
                     and self.arch.norm == "batch"
                     and x.shape[1] % 8 == 0 and x.shape[2] % 8 == 0)
@@ -70,15 +82,18 @@ class G2d(nn.Module):
                 resblock_chain,
             )
 
-            weights, scales, shifts = self.trunk_chain_params()
+            weights, scales, shifts = self.cached_trunk_chain_params()
             cdt = self.policy.compute_dtype
-            x = torch.stack([
+            return torch.stack([
                 resblock_chain(xi.contiguous(), weights, scales, shifts)
                 for xi in x.to(cdt)
             ])
-        else:
-            for name in self.trunk_names:
-                x = getattr(self, name)(x, train)
+        for name in self.trunk_names:
+            x = getattr(self, name)(x, train)
+        return x
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.trunk(self.conv1x1(self.reshape_conv(x)), train)
         x = self.up1(_up2(x), train)
         x = self.up2(_up2(x), train)
         x = self.up3(_up2(x), train)

@@ -119,6 +119,34 @@ def conv_weight_hwio(conv: TorchConv, dtype: torch.dtype) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0).contiguous().to(dtype)
 
 
+class OperandCache:
+    """Kernel operands computed from a module's tensors, kept until one of
+    those tensors changes.
+
+    ``get(sources, build, extra)`` returns ``build()``'s last result while
+    every tensor of ``sources`` still has the ``data_ptr``, ``_version``,
+    device and dtype it had then (and `extra` is unchanged), else builds
+    anew, without autograd. ``load_state_dict``, a BatchNorm calibration and
+    an optimiser step write in place and move ``_version``; ``.to()`` and an
+    assignment to ``.data`` move ``data_ptr``. ``folds`` counts the builds.
+    """
+
+    def __init__(self):
+        self.folds = 0
+        self._key = None
+        self._value = None
+
+    def get(self, sources, build, extra=()):
+        key = (extra, tuple((t.data_ptr(), t._version, t.device, t.dtype)
+                            for t in sources))
+        if key != self._key:
+            with torch.no_grad():
+                self._value = build()
+            self._key = key
+            self.folds += 1
+        return self._value
+
+
 class ResBlock2D(nn.Module):
     """Reference ResBlock2D: conv3-norm-ReLU-conv3-norm (+ a 1x1 conv + norm
     shortcut when the width changes) -> ReLU. The JAX block's ``downsample``
@@ -161,6 +189,7 @@ class ResBlock2D(nn.Module):
                                            device=device)
             self.add_module(f"shortcut_{prefix}",
                             norm_cls(f, policy=policy, device=device))
+        self.chain_cache = OperandCache()
 
     def eligible(self, x: torch.Tensor) -> bool:
         """JAX ``ResBlock2D._eligible`` without the VMEM byte bound."""
@@ -180,6 +209,17 @@ class ResBlock2D(nn.Module):
         return (conv_weight_hwio(self.conv1, cdt), conv_weight_hwio(self.conv2, cdt),
                 s1, t1, s2, t2)
 
+    def chain_sources(self):
+        """The tensors ``chain_params`` is computed from (norm 'batch')."""
+        return [t for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2))
+                for t in (conv.weight, conv.bias, bn.weight, bn.bias,
+                          bn.running_mean, bn.running_var)]
+
+    def cached_chain_params(self):
+        """``chain_params()``, folded again only after a source changed."""
+        return self.chain_cache.get(self.chain_sources(), self.chain_params,
+                                    self.policy.compute_dtype)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.norm == "group":
             identity = x
@@ -196,7 +236,7 @@ class ResBlock2D(nn.Module):
             from megaportraits_tpu_torch.ops.kernels.conv3x3 import conv3x3_bn_act
 
             cdt = self.policy.compute_dtype
-            k1, k2, s1, t1, s2, t2 = self.chain_params()
+            k1, k2, s1, t1, s2, t2 = self.cached_chain_params()
             outs = []
             for xi, ri in zip(x.to(cdt), identity.to(cdt)):
                 h1 = conv3x3_bn_act(xi.contiguous(), k1, s1, t1, None, relu=True)

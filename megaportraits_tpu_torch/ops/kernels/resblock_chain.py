@@ -11,27 +11,39 @@ with x [H, W, C], weights [N, 2, 3, 3, C, C] (HWIO per conv), scales and
 shifts [N, 2, C] float32. Each conv zero-pads its own input, so conv2 pads
 h with zeros (not conv1 of a padded x), as in the TPU kernel.
 
-On a CUDA tensor the chain is 2N launches of the K1 kernel
-(``csrc/conv3x3_bn_act.cu``) on the current stream over two ping-pong
-activation buffers and one h buffer, with no host synchronisation between
-launches. Bound on an H100 SXM for the 8-block 64x64x512 trunk: 309 GFLOP
-of bf16 products over 989 TFLOP/s is 0.313 ms; it is bound by the tensor
-cores. The activations (4 MB a map) stay in the 50 MB L2 between
-launches, which is the part of the TPU kernel's keep-on-chip design this
-version keeps. The single-launch chain is K3 (``resblock_chain_fused.py``).
+On a CUDA tensor the chain is ONE call into ``csrc/conv3x3_bn_act.cu``,
+which enqueues 2N launches of the K1 kernel (TMA-fed ``wgmma``,
+``csrc/conv3x3_wgmma.cuh``) on the current stream over two ping-pong
+activation buffers and one h buffer, with no host synchronisation. Each
+launch after the first is a programmatic dependent launch: its set-up and
+its first weight loads run under the tail of the conv before, the Hopper
+counterpart of the TPU kernel's weight double buffer. The tensor maps that
+TMA needs are cached on the C side by (pointer, shape, box). Bound on an
+H100 SXM for the 8-block 64x64x512 trunk: 309 GFLOP of bf16 products over
+989 TFLOP/s is 0.313 ms; it is bound by the tensor cores. The activations
+(4 MB a map) stay in the 50 MB L2 between launches, which is the part of
+the TPU kernel's keep-on-chip design this version keeps. The single-launch
+chain is K3 (``resblock_chain_fused.py``).
 
 ``resblock_chain.launches`` counts chain calls that launched kernels; the
-convolutions themselves count in ``conv3x3_bn_act.launches``.
+convolutions themselves count in ``conv3x3_bn_act.launches`` (the C call
+reports how many it launched). ``resblock_chain.dependent_launch`` can be
+set to False to time the chain without the overlap.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from megaportraits_tpu_torch.ops.kernels.conv3x3 import (
     check_kernel_args,
+    conv3x3_bn_act,
     conv3x3_bn_act_plain,
-    launch_conv3x3,
+    library,
+    raise_launch_error,
+    tile_box,
 )
 
 
@@ -71,18 +83,29 @@ def resblock_chain(x: torch.Tensor, weights: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"no kernel for device {x.device}")
     check_kernel_args(x, weights, scales, shifts, None)
     n = weights.shape[0]
-    resblock_chain.launches += 1
-    h = torch.empty_like(x)
+    if n == 0:
+        return x
+    lib = library()
+    h, wd, c = x.shape
+    _, bw = tile_box(h, wd)
+    hbuf = torch.empty_like(x)
     bufs = (torch.empty_like(x), torch.empty_like(x))
-    cur = x
-    for b in range(n):
-        launch_conv3x3(cur, weights[b, 0], scales[b, 0], shifts[b, 0], None, h,
-                       relu=True)
-        dst = bufs[b % 2]
-        launch_conv3x3(h, weights[b, 1], scales[b, 1], shifts[b, 1], cur, dst,
-                       relu=True)
-        cur = dst
-    return cur
+    launched = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.resblock_chain(
+            x.data_ptr(), weights.data_ptr(), scales.data_ptr(),
+            shifts.data_ptr(), hbuf.data_ptr(), bufs[0].data_ptr(),
+            bufs[1].data_ptr(), h, wd, c, n, bw,
+            int(resblock_chain.dependent_launch), stream,
+            ctypes.byref(launched))
+    conv3x3_bn_act.launches += launched.value
+    if launched.value:
+        resblock_chain.launches += 1
+    if err != 0:
+        raise_launch_error(lib, "resblock_chain", err)
+    return bufs[(n - 1) % 2]
 
 
 resblock_chain.launches = 0
+resblock_chain.dependent_launch = True

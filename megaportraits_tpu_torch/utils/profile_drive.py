@@ -59,17 +59,7 @@ def _stages(model, state, xd):
         memo["h"] = g2d.conv1x1(g2d.reshape_conv(memo["p"]))
 
     def trunk():
-        x = memo["h"]
-        if g2d.use_chain_kernel:
-            from megaportraits_tpu_torch.ops.kernels.resblock_chain import (
-                resblock_chain,
-            )
-            weights, scales, shifts = g2d.trunk_chain_params()
-            x = resblock_chain(x[0].contiguous(), weights, scales, shifts)[None]
-        else:
-            for name in g2d.trunk_names:
-                x = getattr(g2d, name)(x)
-        memo["t"] = x
+        memo["t"] = g2d.trunk(memo["h"])
 
     def decoder():
         x = g2d.up3(_up2(g2d.up2(_up2(g2d.up1(_up2(memo["t"]))))))
