@@ -1,6 +1,7 @@
 // One output tile of a fused 3x3 SAME convolution with a per-channel affine
 // epilogue, for Hopper: operands by TMA, products by wgmma. The tile routine
-// of K1 (conv3x3_bn_act.cu) and, through it, of K2's 2N convolutions.
+// of K1 (conv3x3_bn_act.cu), through it of K2's 2N convolutions, and of K3
+// (resblock_chain_fused.cu).
 //
 //   out[y, x, f] = act( sum_{dy,dx,c} x[y+dy-1, x+dx-1, c] * w[dy, dx, c, f]
 //                       * scale[f] + shift[f] (+ residual[y, x, f]) )
@@ -10,7 +11,8 @@
 // identity. Zero SAME padding.
 //
 // Replaces the TPU kernel megaportraits_tpu/ops/pallas/conv2d.py
-// (fused_conv3x3).
+// (fused_conv3x3). The one-launch chain (resblock_chain_fused.cu) walks all
+// its tiles with the same pieces, so the two chains sum in one order.
 //
 // Bound on an H100 SXM at the G2d trunk shape 64x64x512 -> 512: 19.33 GFLOP
 // of bf16 products over 989 TFLOP/s is 19.5 us (the bytes it must move take
@@ -90,10 +92,14 @@ constexpr int B_BYTES = 2 * B_HALF_BYTES;
 constexpr int B_STAGES = 4;
 constexpr int EPI_PART_BYTES = 64 * 128;  // 64 pixel rows x 64 channels
 constexpr int EPI_BYTES = 4 * EPI_PART_BYTES;  // [warpgroup][channel half]
-constexpr int BAR_BYTES = 256;  // 2 * (A_TAP_STAGES + B_STAGES) + 1 mbarriers
-// 1 KB of slack: the swizzled tiles must start on 1024-byte boundaries.
-constexpr int SMEM_BYTES =
-    1024 + A_BYTES + B_STAGES * B_BYTES + EPI_BYTES + BAR_BYTES;
+constexpr int BAR_BYTES = 256;  // 2 * (A_TAP_STAGES + B_STAGES) + 4 mbarriers
+// Dynamic shared memory of a CTA with `epi_bufs` epilogue buffers. 1 KB of
+// slack: the swizzled tiles must start on 1024-byte boundaries.
+constexpr int smem_bytes(int epi_bufs) {
+  return 1024 + A_BYTES + B_STAGES * B_BYTES + epi_bufs * EPI_BYTES +
+         BAR_BYTES;
+}
+constexpr int SMEM_BYTES = smem_bytes(1);  // one tile a CTA: 167,168 B
 static_assert(A_TAP_STAGES * A_TAP_BYTES <= A_BYTES, "the tap ring must fit");
 static_assert(A_HALO_BYTES % 1024 == 0 && A_BYTES % 1024 == 0, "alignment");
 
@@ -293,47 +299,55 @@ struct KLoop {
   }
 };
 
-// The tile of blockIdx: pixel box blockIdx.x (x fastest), channels
-// [blockIdx.y * BN, + BN). Every thread of the CTA calls this and none
-// returns before its role is done; there is no CTA-wide barrier after the
-// roles part. `map_x` has the haloed box if p.bw == HALO_BW, else the tap
-// box. Preconditions: C % 8 == 0, F % 8 == 0, 16-byte aligned base
-// pointers; `map_res` is not used if p.has_residual == 0.
-__device__ __forceinline__ void conv3x3_tile(const CUtensorMap* map_x,
-                                             const CUtensorMap* map_w,
-                                             const CUtensorMap* map_res,
-                                             const CUtensorMap* map_out,
-                                             const Params& p,
-                                             unsigned char* smem_raw) {
-  const bool halo = p.bw == HALO_BW;
-  const int a_stages = halo ? A_HALO_STAGES : A_TAP_STAGES;
-  const uint32_t a_bytes = halo ? A_HALO_BYTES : A_TAP_BYTES;
-  const uint32_t a_base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t b_base = a_base + A_BYTES;
-  const uint32_t epi = b_base + B_STAGES * B_BYTES;
-  const uint32_t bars = epi + EPI_BYTES;
-  auto a_full = [&](int s) { return bars + 8u * s; };
-  auto a_empty = [&](int s) { return bars + 8u * (A_TAP_STAGES + s); };
-  auto b_full = [&](int s) { return bars + 8u * (2 * A_TAP_STAGES + s); };
-  auto b_empty = [&](int s) {
+// ---- the pieces of the tile routine ------------------------------------------
+//
+// A launch initialises the mbarriers once, reassigns its registers once and
+// then walks one tile (K1, conv3x3_tile below) or many (the one-launch
+// chain, resblock_chain_fused.cu). So nothing here counts from a tile's
+// start: every ring has a RUNNING count of the loads made into it since the
+// launch began, kept in step by the producer and the consumers, and a
+// load's buffer and barrier phase follow from that count alone. A ring is
+// drained at the end of a tile (the consumers release the last step's
+// buffers too), so the next tile may belong to another conv.
+
+// Where a CTA's dynamic shared memory holds what. `epi_bufs` epilogue
+// buffers (1 for a single tile; 2 where tiles follow each other and one
+// buffer's store may still be read while the next tile's residual
+// arrives).
+struct Smem {
+  uint32_t a_base, b_base, epi, bars;
+
+  __device__ __forceinline__ Smem(const unsigned char* raw, int epi_bufs) {
+    a_base = (smem_u32(raw) + 1023u) & ~1023u;
+    b_base = a_base + A_BYTES;
+    epi = b_base + B_STAGES * B_BYTES;
+    bars = epi + epi_bufs * EPI_BYTES;
+  }
+  __device__ __forceinline__ uint32_t a_full(int s) const {
+    return bars + 8u * s;
+  }
+  __device__ __forceinline__ uint32_t a_empty(int s) const {
+    return bars + 8u * (A_TAP_STAGES + s);
+  }
+  __device__ __forceinline__ uint32_t b_full(int s) const {
+    return bars + 8u * (2 * A_TAP_STAGES + s);
+  }
+  __device__ __forceinline__ uint32_t b_empty(int s) const {
     return bars + 8u * (2 * A_TAP_STAGES + B_STAGES + s);
-  };
-  const uint32_t res_bar = bars + 8u * (2 * A_TAP_STAGES + 2 * B_STAGES);
-
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-
-  const int tiles_x = (p.W + p.bw - 1) / p.bw;
-  const int x0 = (blockIdx.x % tiles_x) * p.bw;
-  const int y0 = (blockIdx.x / tiles_x) * p.bh;
-  const int n0 = blockIdx.y * BN;
-  const KLoop k(halo, (p.C + BK - 1) / BK, valid_taps(y0, x0, p.H, p.W));
-  const int n_halves = p.F - n0 > 64 ? 2 : 1;  // 64-channel halves in range
-  const int half_rows = p.bh / 2;              // image rows per warpgroup
-
-  if (tid == 0) {
+  }
+  // The residual of epilogue buffer e has arrived.
+  __device__ __forceinline__ uint32_t res_full(int e) const {
+    return bars + 8u * (2 * A_TAP_STAGES + 2 * B_STAGES + e);
+  }
+  // Epilogue buffer e has been stored and may be loaded into again.
+  __device__ __forceinline__ uint32_t epi_free(int e) const {
+    return bars + 8u * (2 * A_TAP_STAGES + 2 * B_STAGES + 2 + e);
+  }
+  __device__ __forceinline__ uint32_t epi_buf(int e) const {
+    return epi + e * EPI_BYTES;
+  }
+  // One thread calls this, once a launch, before a CTA-wide barrier.
+  __device__ __forceinline__ void init_barriers() const {
     for (int s = 0; s < A_TAP_STAGES; ++s) {
       mbar_init(a_full(s), 1);
       mbar_init(a_empty(s), 8);  // one arrival a consumer warp
@@ -342,9 +356,236 @@ __device__ __forceinline__ void conv3x3_tile(const CUtensorMap* map_x,
       mbar_init(b_full(s), 1);
       mbar_init(b_empty(s), 8);
     }
-    mbar_init(res_bar, 1);
+    for (int e = 0; e < 2; ++e) {
+      mbar_init(res_full(e), 1);
+      mbar_init(epi_free(e), 2);  // one arrival a consumer warpgroup
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+};
+
+// One output tile: pixel box `box` (x fastest over the image), channels
+// [channel_tile * BN, + BN).
+struct Tile {
+  int x0, y0, n0;
+  int n_halves;  // 64-channel halves in range
+  KLoop k;
+
+  __device__ __forceinline__ Tile(const Params& p, int box, int channel_tile)
+      : x0((box % ((p.W + p.bw - 1) / p.bw)) * p.bw),
+        y0((box / ((p.W + p.bw - 1) / p.bw)) * p.bh),
+        n0(channel_tile * BN),
+        n_halves(p.F - channel_tile * BN > 64 ? 2 : 1),
+        k(p.bw == HALO_BW, (p.C + BK - 1) / BK,
+          valid_taps(y0, x0, p.H, p.W)) {}
+};
+
+// The weight boxes of K step i of tile t, as the n'th load into the weight
+// ring since the launch began: waits until the buffer's last reader has
+// released it (at once for the first B_STAGES loads of a launch). `tap0` is
+// the conv's first tap in the weight map (0, or 9 * conv in a chain's map).
+__device__ __forceinline__ void load_weights(const Smem& sm,
+                                             const CUtensorMap* map_w,
+                                             const Tile& t, int i, uint32_t n,
+                                             int tap0) {
+  const int s = n % B_STAGES;
+  mbar_wait(sm.b_empty(s), ((n / B_STAGES) & 1) ^ 1);
+  mbar_expect_tx(sm.b_full(s), t.n_halves * B_HALF_BYTES);
+  for (int h = 0; h < t.n_halves; ++h)
+    tma_load_3d(sm.b_base + s * B_BYTES + h * B_HALF_BYTES, map_w,
+                sm.b_full(s), t.n0 + h * 64, t.k.slice(i) * BK,
+                tap0 + t.k.tap(i));
+}
+
+// The pixel box that K step i of tile t begins (k.a_first(i)), as the n'th
+// load into the pixel ring since the launch began.
+__device__ __forceinline__ void load_pixels(const Smem& sm,
+                                            const CUtensorMap* map_x,
+                                            const Tile& t, int i, uint32_t n) {
+  const uint32_t stages = t.k.halo ? A_HALO_STAGES : A_TAP_STAGES;
+  const uint32_t a_bytes = t.k.halo ? A_HALO_BYTES : A_TAP_BYTES;
+  const int s = n % stages;
+  const int tap = t.k.halo ? 0 : t.k.tap(i);  // the haloed box is tap (0, 0)'s
+  mbar_wait(sm.a_empty(s), ((n / stages) & 1) ^ 1);
+  mbar_expect_tx(sm.a_full(s), a_bytes);
+  tma_load_3d(sm.a_base + s * a_bytes, map_x, sm.a_full(s), t.k.slice(i) * BK,
+              t.x0 + tap % 3 - 1, t.y0 + tap / 3 - 1);
+}
+
+// The residual tile of t into epilogue buffer e; res_full(e) completes when
+// it has arrived.
+__device__ __forceinline__ void load_residual(const Smem& sm, int e,
+                                              const CUtensorMap* map_res,
+                                              const Tile& t, const Params& p) {
+  const int half_rows = p.bh / 2;
+  int parts = 0;
+  for (int g = 0; g < 2; ++g)
+    if (t.y0 + g * half_rows < p.H) parts += t.n_halves;
+  mbar_expect_tx(sm.res_full(e), parts * EPI_PART_BYTES);
+  for (int g = 0; g < 2; ++g) {
+    if (t.y0 + g * half_rows >= p.H) continue;
+    for (int h = 0; h < t.n_halves; ++h)
+      tma_load_3d(sm.epi_buf(e) + (g * 2 + h) * EPI_PART_BYTES, map_res,
+                  sm.res_full(e), t.n0 + h * 64, t.x0, t.y0 + g * half_rows);
+  }
+}
+
+// A consumer warpgroup's K loop over tile t: acc += its 64 pixels x 128
+// channels. `na` and `nb` are the loads made into the pixel and the weight
+// ring before this tile; they are advanced past it. Every buffer of the
+// tile has been released when this returns.
+__device__ __forceinline__ void multiply_tile(const Smem& sm, const Tile& t,
+                                              int g, int lane,
+                                              float (&acc)[64], uint32_t& na,
+                                              uint32_t& nb) {
+  const KLoop& k = t.k;
+  const uint32_t a_stages = k.halo ? A_HALO_STAGES : A_TAP_STAGES;
+  const uint32_t a_bytes = k.halo ? A_HALO_BYTES : A_TAP_BYTES;
+  for (int i = 0; i < k.n_steps; ++i) {
+    const uint32_t ai = na + k.a_index(i);
+    const int sa = ai % a_stages;
+    const uint32_t bi = nb + i;
+    const int sb = bi % B_STAGES;
+    // One lane of each warp polls: 256 threads polling one barrier get in
+    // the way of the arrivals it waits for.
+    if (lane == 0) {
+      if (k.a_first(i)) mbar_wait(sm.a_full(sa), (ai / a_stages) & 1);
+      mbar_wait(sm.b_full(sb), (bi / B_STAGES) & 1);
+    }
+    __syncwarp();
+    // A: rows of 128 B, 8-row groups 1024 B apart; this warpgroup's 64
+    // rows start at row g * 64 of a tap box, or at the tap's place in the
+    // haloed box. B: 64-channel halves 8 KB apart (leading), 8-row (k)
+    // groups 1024 B apart (stride).
+    uint32_t a = sm.a_base + sa * a_bytes;
+    if (k.halo) {
+      const int tap = k.tap(i);
+      a += ((g + tap / 3) * HALO_PITCH + tap % 3) * 128;
+    } else {
+      a += g * (64 * 128);
+    }
+    const uint64_t da = wgmma_desc(a, 16, 1024);
+    const uint64_t db =
+        wgmma_desc(sm.b_base + sb * B_BYTES, B_HALF_BYTES, 1024);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16(acc, da + kk * 2, db + kk * 128);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // One group stays in flight; the one before it has read its buffers.
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    if (i > 0 && lane == 0) {
+      mbar_arrive(sm.b_empty((bi - 1) % B_STAGES));
+      if (k.a_last(i - 1))
+        mbar_arrive(sm.a_empty((na + k.a_index(i - 1)) % a_stages));
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  // The last step's buffers: a tile that follows finds its rings drained.
+  if (lane == 0) {
+    mbar_arrive(sm.b_empty((nb + k.n_steps - 1) % B_STAGES));
+    mbar_arrive(sm.a_empty((na + k.a_index(k.n_steps - 1)) % a_stages));
+  }
+  na += k.a_index(k.n_steps - 1) + 1;
+  nb += k.n_steps;
+}
+
+// A consumer warpgroup's epilogue on its accumulators and the store of its
+// half of tile t from epilogue buffer e. With `add_residual` the buffer
+// holds the residual tile, in the swizzled layout that TMA writes and this
+// routine stores: with `residual_parity` >= 0 it is on its way by TMA and
+// res_full(e) leaves that phase when it has arrived; with -1 it is there
+// already (the tile this warpgroup stored from the buffer earlier). When
+// this returns, the storing thread's store is complete in global memory.
+__device__ __forceinline__ void finish_tile(const Smem& sm, int e,
+                                            const CUtensorMap* map_out,
+                                            const Tile& t, const Params& p,
+                                            bool add_residual,
+                                            int residual_parity, int g,
+                                            int warp, int lane,
+                                            float (&acc)[64]) {
+  const int row_y = t.y0 + g * (p.bh / 2);
+  // The vote tells the compiler what it cannot see, that a warp's lanes
+  // agree here. With a plain `if`, it takes a caller's tile loop for
+  // divergent, keeps the K loop's addresses and wgmma descriptors out of the
+  // uniform registers, and the four wgmma of a step no longer start back to
+  // back (the one-launch chain was a quarter slower).
+  if (__all_sync(0xffffffffu, row_y < p.H)) {
+    if (add_residual && residual_parity >= 0)
+      mbar_wait(sm.res_full(e), residual_parity);
+    // Fragment: acc[4j + {0,1}] is row r0, acc[4j + {2,3}] row r0 + 8,
+    // channels 8j + 2 * (lane % 4) + {0,1}. In the swizzled tile the
+    // 16-byte chunk j % 8 of row r lies at chunk (j % 8) ^ (r % 8), so the
+    // 32 lanes of a warp touch 32 different banks.
+    const int r0 = (warp & 3) * 16 + (lane >> 2);
+    const uint32_t part = sm.epi_buf(e) + g * 2 * EPI_PART_BYTES;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = t.n0 + j * 8 + (lane & 3) * 2;
+      float2 sc = make_float2(0.0f, 0.0f), sh = make_float2(0.0f, 0.0f);
+      if (col < p.F) {
+        sc = __ldg(reinterpret_cast<const float2*>(p.scale + col));
+        sh = __ldg(reinterpret_cast<const float2*>(p.shift + col));
+      }
+      const uint32_t addr = part + (j >> 3) * EPI_PART_BYTES + r0 * 128 +
+                            ((((j & 7) ^ (lane >> 2)) & 7) << 4) +
+                            (lane & 3) * 4;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // rows r0 and r0 + 8
+        float v0 = acc[4 * j + 2 * q] * sc.x + sh.x;
+        float v1 = acc[4 * j + 2 * q + 1] * sc.y + sh.y;
+        if (add_residual) {
+          const uint32_t rv = ld_shared_u32(addr + q * 1024);
+          const float2 rf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&rv));
+          v0 += rf.x;
+          v1 += rf.y;
+        }
+        if (p.relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
+        const __nv_bfloat162 ob = __floats2bfloat162_rn(v0, v1);
+        st_shared_u32(addr + q * 1024, *reinterpret_cast<const uint32_t*>(&ob));
+      }
+    }
+    // Make the tile visible to the TMA engine, then one thread stores it and
+    // waits until the store is complete (not only until it has read the
+    // buffer): in a chain, other CTAs load what it wrote.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(g + 1) : "memory");
+    if ((warp & 3) == 0 && lane == 0) {
+      for (int h = 0; h < t.n_halves; ++h)
+        tma_store_3d(map_out, part + h * EPI_PART_BYTES, t.n0 + h * 64, t.x0,
+                     row_y);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    }
+  }
+}
+
+// ---- one tile a CTA: K1 --------------------------------------------------------
+
+// The tile of blockIdx: pixel box blockIdx.x (x fastest), channels
+// [blockIdx.y * BN, + BN). Every thread of the CTA calls this and none
+// returns before its role is done. `map_x` has the haloed box if
+// p.bw == HALO_BW, else the tap box. Preconditions: C % 8 == 0, F % 8 == 0,
+// 16-byte aligned base pointers; `map_res` is not used if
+// p.has_residual == 0.
+__device__ __forceinline__ void conv3x3_tile(const CUtensorMap* map_x,
+                                             const CUtensorMap* map_w,
+                                             const CUtensorMap* map_res,
+                                             const CUtensorMap* map_out,
+                                             const Params& p,
+                                             unsigned char* smem_raw) {
+  const Smem sm(smem_raw, 1);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const Tile t(p, blockIdx.x, blockIdx.y);
+
+  if (tid == 0) sm.init_barriers();
   __syncthreads();
 
   if (wg == 0) {
@@ -355,51 +596,22 @@ __device__ __forceinline__ void conv3x3_tile(const CUtensorMap* map_x,
       tma_prefetch_map(map_w);
       tma_prefetch_map(map_out);
       if (p.has_residual) tma_prefetch_map(map_res);
-
-      const uint32_t b_bytes = n_halves * B_HALF_BYTES;
-      auto load_b = [&](int i) {
-        const int s = i % B_STAGES;
-        mbar_expect_tx(b_full(s), b_bytes);
-        for (int h = 0; h < n_halves; ++h)
-          tma_load_3d(b_base + s * B_BYTES + h * B_HALF_BYTES, map_w,
-                      b_full(s), n0 + h * 64, k.slice(i) * BK, k.tap(i));
-      };
       // Before the dependency wait: the weights of the first steps.
-      const int n_pre = k.n_steps < B_STAGES ? k.n_steps : B_STAGES;
-      for (int i = 0; i < n_pre; ++i) load_b(i);
+      const int n_pre = t.k.n_steps < B_STAGES ? t.k.n_steps : B_STAGES;
+      for (int i = 0; i < n_pre; ++i) load_weights(sm, map_w, t, i, i, 0);
       asm volatile("griddepcontrol.wait;\n" ::: "memory");
-      if (p.has_residual) {
-        int parts = 0;
-        for (int g = 0; g < 2; ++g)
-          if (y0 + g * half_rows < p.H) parts += n_halves;
-        mbar_expect_tx(res_bar, parts * EPI_PART_BYTES);
-        for (int g = 0; g < 2; ++g) {
-          if (y0 + g * half_rows >= p.H) continue;
-          for (int h = 0; h < n_halves; ++h)
-            tma_load_3d(epi + (g * 2 + h) * EPI_PART_BYTES, map_res, res_bar,
-                        n0 + h * 64, x0, y0 + g * half_rows);
-        }
-      }
-      for (int i = n_pre; i < k.n_steps; ++i) {
-        mbar_wait(b_empty(i % B_STAGES), ((i / B_STAGES) & 1) ^ 1);
-        load_b(i);
-      }
+      if (p.has_residual) load_residual(sm, 0, map_res, t, p);
+      for (int i = n_pre; i < t.k.n_steps; ++i)
+        load_weights(sm, map_w, t, i, i, 0);
     } else if (warp == 1 && lane == 0) {
       // The pixels' producer: a thread of its own, so that a haloed box is
       // asked for as soon as its buffer is free, two slices ahead, and not
       // when the weights' loop gets there.
       tma_prefetch_map(map_x);
       asm volatile("griddepcontrol.wait;\n" ::: "memory");
-      for (int i = 0; i < k.n_steps; ++i) {
-        if (!k.a_first(i)) continue;
-        const int ai = k.a_index(i);
-        const int s = ai % a_stages;
-        const int tap = halo ? 0 : k.tap(i);  // the haloed box is tap (0, 0)'s
-        mbar_wait(a_empty(s), ((ai / a_stages) & 1) ^ 1);
-        mbar_expect_tx(a_full(s), a_bytes);
-        tma_load_3d(a_base + s * a_bytes, map_x, a_full(s), k.slice(i) * BK,
-                    x0 + tap % 3 - 1, y0 + tap / 3 - 1);
-      }
+      uint32_t na = 0;
+      for (int i = 0; i < t.k.n_steps; ++i)
+        if (t.k.a_first(i)) load_pixels(sm, map_x, t, i, na++);
     }
   } else {
     // ---- consumers --------------------------------------------------------
@@ -409,101 +621,15 @@ __device__ __forceinline__ void conv3x3_tile(const CUtensorMap* map_x,
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-
-    for (int i = 0; i < k.n_steps; ++i) {
-      const int ai = k.a_index(i);
-      const int sa = ai % a_stages;
-      const int sb = i % B_STAGES;
-      // One lane of each warp polls: 256 threads polling one barrier get in
-      // the way of the arrivals it waits for.
-      if (lane == 0) {
-        if (k.a_first(i)) mbar_wait(a_full(sa), (ai / a_stages) & 1);
-        mbar_wait(b_full(sb), (i / B_STAGES) & 1);
-      }
-      __syncwarp();
-      // A: rows of 128 B, 8-row groups 1024 B apart; this warpgroup's 64
-      // rows start at row g * 64 of a tap box, or at the tap's place in the
-      // haloed box. B: 64-channel halves 8 KB apart (leading), 8-row (k)
-      // groups 1024 B apart (stride).
-      uint32_t a = a_base + sa * a_bytes;
-      if (halo) {
-        const int tap = k.tap(i);
-        a += ((g + tap / 3) * HALO_PITCH + tap % 3) * 128;
-      } else {
-        a += g * (64 * 128);
-      }
-      const uint64_t da = wgmma_desc(a, 16, 1024);
-      const uint64_t db = wgmma_desc(b_base + sb * B_BYTES, B_HALF_BYTES, 1024);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64n128k16(acc, da + kk * 2, db + kk * 128);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      // One group stays in flight; the one before it has read its buffers.
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      if (i > 0 && lane == 0) {
-        mbar_arrive(b_empty((i - 1) % B_STAGES));
-        if (k.a_last(i - 1)) mbar_arrive(a_empty(k.a_index(i - 1) % a_stages));
-      }
-    }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    uint32_t na = 0, nb = 0;
+    multiply_tile(sm, t, g, lane, acc, na, nb);
     // The conv after this one may start its own set-up now.
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
     // Orders this thread's global reads and the tile's store after the
     // grid before (the producer's wait already ordered the loads).
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
-
-    const int row_y = y0 + g * half_rows;
-    if (row_y < p.H) {
-      if (p.has_residual) mbar_wait(res_bar, 0);
-      // Fragment: acc[4j + {0,1}] is row r0, acc[4j + {2,3}] row r0 + 8,
-      // channels 8j + 2 * (lane % 4) + {0,1}. In the swizzled tile the
-      // 16-byte chunk j % 8 of row r lies at chunk (j % 8) ^ (r % 8), so the
-      // 32 lanes of a warp touch 32 different banks.
-      const int r0 = (warp & 3) * 16 + (lane >> 2);
-      const uint32_t part = epi + g * 2 * EPI_PART_BYTES;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = n0 + j * 8 + (lane & 3) * 2;
-        float2 sc = make_float2(0.0f, 0.0f), sh = make_float2(0.0f, 0.0f);
-        if (col < p.F) {
-          sc = __ldg(reinterpret_cast<const float2*>(p.scale + col));
-          sh = __ldg(reinterpret_cast<const float2*>(p.shift + col));
-        }
-        const uint32_t addr = part + (j >> 3) * EPI_PART_BYTES + r0 * 128 +
-                              ((((j & 7) ^ (lane >> 2)) & 7) << 4) +
-                              (lane & 3) * 4;
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {  // rows r0 and r0 + 8
-          float v0 = acc[4 * j + 2 * q] * sc.x + sh.x;
-          float v1 = acc[4 * j + 2 * q + 1] * sc.y + sh.y;
-          if (p.has_residual) {
-            const uint32_t rv = ld_shared_u32(addr + q * 1024);
-            const float2 rf = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(&rv));
-            v0 += rf.x;
-            v1 += rf.y;
-          }
-          if (p.relu) {
-            v0 = fmaxf(v0, 0.0f);
-            v1 = fmaxf(v1, 0.0f);
-          }
-          const __nv_bfloat162 ob = __floats2bfloat162_rn(v0, v1);
-          st_shared_u32(addr + q * 1024,
-                        *reinterpret_cast<const uint32_t*>(&ob));
-        }
-      }
-      // Make the tile visible to the TMA engine, then one thread stores it.
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync %0, 128;\n" ::"r"(g + 1) : "memory");
-      if ((warp & 3) == 0 && lane == 0) {
-        for (int h = 0; h < n_halves; ++h)
-          tma_store_3d(map_out, part + h * EPI_PART_BYTES, n0 + h * 64, x0,
-                       row_y);
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-      }
-    }
+    finish_tile(sm, 0, map_out, t, p, p.has_residual != 0, 0, g, warp, lane,
+                acc);
   }
 }
 

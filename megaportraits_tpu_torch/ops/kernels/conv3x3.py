@@ -117,7 +117,7 @@ def conv3x3_bn_act_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _zero_filled_box(t: torch.Tensor, starts, sizes) -> torch.Tensor:
+def zero_filled_box(t: torch.Tensor, starts, sizes) -> torch.Tensor:
     """The box of `t` at signed `starts` with `sizes`, zeros outside `t`
     (what a tiled TMA load writes to shared memory)."""
     out = t.new_zeros(sizes)
@@ -156,19 +156,19 @@ def conv3x3_bn_act_boxed(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     xf, wf = x.float(), w.float()
     out = torch.empty((h, wd, f), dtype=x.dtype, device=x.device)
     for n0 in range(0, f, TILE_CHANNELS):
-        sc = _zero_filled_box(scale.float(), (n0,), (TILE_CHANNELS,))
-        sh = _zero_filled_box(shift.float(), (n0,), (TILE_CHANNELS,))
+        sc = zero_filled_box(scale.float(), (n0,), (TILE_CHANNELS,))
+        sh = zero_filled_box(shift.float(), (n0,), (TILE_CHANNELS,))
         for y0, x0 in tile_origins(h, wd):
             acc = torch.zeros(TILE_PIXELS, TILE_CHANNELS, device=x.device)
 
             def step(a, tap, c0):
-                b = _zero_filled_box(wf[tap // 3, tap % 3], (c0, n0),
+                b = zero_filled_box(wf[tap // 3, tap % 3], (c0, n0),
                                      (K_SLICE, TILE_CHANNELS))
                 acc.add_(a.reshape(TILE_PIXELS, K_SLICE) @ b)
 
             if bw == HALO_BOX_WIDTH:
                 for c0 in range(0, c, K_SLICE):
-                    halo = _zero_filled_box(xf, (y0 - 1, x0 - 1, c0),
+                    halo = zero_filled_box(xf, (y0 - 1, x0 - 1, c0),
                                             (bh + 2, bw + 2, K_SLICE))
                     for tap in range(9):
                         dy, dx = tap // 3, tap % 3
@@ -179,11 +179,11 @@ def conv3x3_bn_act_boxed(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                     if ty >= h or tx >= wd:
                         continue
                     for c0 in range(0, c, K_SLICE):
-                        step(_zero_filled_box(xf, (ty, tx, c0), (bh, bw, K_SLICE)),
+                        step(zero_filled_box(xf, (ty, tx, c0), (bh, bw, K_SLICE)),
                              tap, c0)
             y = acc * sc + sh
             if residual is not None:
-                y = y + _zero_filled_box(
+                y = y + zero_filled_box(
                     residual.float(), (y0, x0, n0),
                     (bh, bw, TILE_CHANNELS)).reshape(TILE_PIXELS, TILE_CHANNELS)
             if relu:
@@ -194,7 +194,7 @@ def conv3x3_bn_act_boxed(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def check_kernel_args(x, w, scale, shift, residual):
+def check_kernel_args(x, w, scale, shift, residual, c_multiple: int = 32):
     tensors = [x, w, scale, shift] + ([] if residual is None else [residual])
     if any(t.device != x.device for t in tensors):
         raise ValueError("all arguments must lie on one device")
@@ -210,9 +210,9 @@ def check_kernel_args(x, w, scale, shift, residual):
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the CUDA kernel takes 16-byte aligned tensors")
     c, f = x.shape[2], w.shape[-1]
-    if c % 32 or f % 8:
-        raise ValueError(f"the CUDA kernel takes C % 32 == 0 and F % 8 == 0, "
-                         f"got C={c}, F={f}")
+    if c % c_multiple or f % 8:
+        raise ValueError(f"the CUDA kernel takes C % {c_multiple} == 0 and "
+                         f"F % 8 == 0, got C={c}, F={f}")
 
 
 def library():

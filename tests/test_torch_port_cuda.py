@@ -10,11 +10,9 @@ The plain version convolves in float32 with TF32 off; the kernel
 accumulates bf16 products in float32 and rounds once to bf16, so the two
 differ by bf16 rounding: 2 bf16 ulps of the output's magnitude
 (rtol 2**-7) plus atol 2e-2 for one conv; twice that for a 2-block chain.
-K3 rounds to bf16 at the same places as K2, but the two sum each output
-in another order (K2's tile routine walks 64-channel slices of a pixel box
-with wgmma, K3's 32-channel slices of a flat run with mma.sync), so a sum
-can fall on the other side of a bf16 rounding: they agree to the same
-tolerance as each agrees with the plain version.
+K3 walks its tiles with K2's tile routine, sums in the same order and rounds
+to bf16 at the same places (a residual that stays in shared memory is the
+bf16 tile that was stored), so K3 equals K2 bit for bit.
 """
 
 import numpy as np
@@ -143,11 +141,14 @@ def test_k2_chain_reuses_its_tensor_maps_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(64, 64, 512, 2), (40, 24, 256, 2),
-                                   (16, 16, 128, 3)])
+                                   (16, 16, 128, 3), (9, 65, 96, 2),
+                                   (128, 128, 256, 2), (64, 64, 512, 1)])
 def test_k3_kernel_matches_plain_and_k2_on_card(cuda, shape):
     """One launch a call, none of K1's; the input is not written. 40x24x256
-    has 8 x 2 = 16 tiles a conv (8 pixel tiles, the last half full, by 2
-    channel tiles), not a multiple of the SM count."""
+    has 10 x 2 = 20 tiles a conv on the tap path, 9x65x96 a last row and a
+    last column of one pixel on the haloed path, and 128x128x256 more tiles
+    (256) than the card holds CTAs, so that CTAs take several tiles a conv
+    and the residual comes by TMA."""
     h, w, c, nb = shape
     args = _chain_args(10, h, w, c, nb, cuda)
     x_before = args[0].clone()
@@ -157,12 +158,59 @@ def test_k3_kernel_matches_plain_and_k2_on_card(cuda, shape):
     assert (k1.conv3x3_bn_act.launches, k3.fused_resblock_chain.launches) == (
         before[0], before[1] + 1)
     assert torch.equal(args[0], x_before)
-    assert 1 <= k3.grid_ctas(h, w, c) <= -(-h * w // 128) * -(-c // 128)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert k3.grid_ctas(h, w, c) == k3.plan_grid(h, w, c, sms)
     want = k3.fused_resblock_chain_plain(*args)
     torch.testing.assert_close(got.float(), want.float(), atol=4e-2, rtol=2**-6)
-    # Another order of summation in K2's tile routine: a tolerance, not bits.
-    torch.testing.assert_close(got.float(), k2.resblock_chain(*args).float(),
-                               atol=4e-2, rtol=2**-6)
+    assert torch.equal(got, k2.resblock_chain(*args))  # bit for bit
+
+
+@pytest.mark.cuda
+def test_k3_kernel_takes_channels_in_multiples_of_8_on_card(cuda):
+    """C = 40: K2's wrapper refuses it, the tile routine's boxes zero-fill."""
+    args = _chain_args(14, 12, 20, 40, 2, cuda)
+    got = k3.fused_resblock_chain(*args)
+    torch.cuda.synchronize()
+    want = k3.fused_resblock_chain_plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=4e-2, rtol=2**-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64, 512, 8), (128, 128, 256, 2)])
+@pytest.mark.parametrize("queued", [False, True])
+def test_k3_repeated_calls_are_identical_on_card(cuda, shape, queued):
+    """A race between CTAs shows as a call that differs: 200 back-to-back
+    calls all equal the first, launched onto an idle card and queued behind
+    other work."""
+    args = _chain_args(15, *shape, cuda)
+    first = k3.fused_resblock_chain(*args)
+    torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(20_000_000)
+        k2.resblock_chain(*args)
+    outs = [k3.fused_resblock_chain(*args) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(out, first) for out in outs)
+    assert torch.equal(first, k2.resblock_chain(*args))
+
+
+@pytest.mark.cuda
+def test_k3_reuses_its_tensor_maps_and_sync_words_on_card(cuda):
+    """A second call on the same tensors encodes no map for x or the weights
+    (the scratch buffers may come back at other addresses: at most 4 maps),
+    and both calls share the stream's boundary words, left zeroed."""
+    args = _chain_args(16, 16, 16, 64, 2, cuda)
+    lib = k3._library()
+    first = k3.fused_resblock_chain(*args)
+    torch.cuda.synchronize()
+    encoded = lib.resblock_chain_fused_maps_encoded()
+    words = len(k3._SYNC_WORDS)
+    second = k3.fused_resblock_chain(*args)
+    torch.cuda.synchronize()
+    assert lib.resblock_chain_fused_maps_encoded() - encoded <= 4
+    assert len(k3._SYNC_WORDS) == words
+    assert all(int(w.abs().sum()) == 0 for w in k3._SYNC_WORDS.values())
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -172,6 +220,9 @@ def test_k3_kernel_rejects_what_it_does_not_take(cuda):
         k3.fused_resblock_chain(x.float(), wts, sc, sh)
     with pytest.raises(ValueError):  # no blocks
         k3.fused_resblock_chain(x, wts[:0], sc[:0], sh[:0])
+    x36, wts36, sc36, sh36 = _chain_args(17, 8, 8, 36, 1, cuda)
+    with pytest.raises(ValueError):  # C % 8 != 0
+        k3.fused_resblock_chain(x36, wts36, sc36, sh36)
 
 
 @pytest.mark.cuda
