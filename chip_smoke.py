@@ -36,17 +36,30 @@ Phases, in order; any failure exits non-zero:
      ms/frame and Genh's share of it;
   8. stage-3 serving: FULL Student, 4 avatars, 1024x1024, batch 1; 4 frames
      with two avatar indices; output checks, ms/frame;
-  9. one JSON line listing every kernel with its numbers;
-  10. last line: {"ok": true, "device": {...}}.
+  9. stage-1 training: init_states + make_train_step, FULL, 512x512, batch
+     2, bf16 compute, Config() defaults, seeded weights and batches; 1
+     warm-up and 3 timed steps with K1 and K2 switched on, which train mode
+     must bypass (0 launches of K1, K2, K3); every metric of every step,
+     ms/step, steps/s and peak memory beside the card's name and power
+     limit; G and D moved, the rotation net and the loss nets bit for bit,
+     G2d's BatchNorm statistics moved;
+  10. serving from the trained weights: ReenactmentSession(bn_mode=
+     'running'), set_source + 2 frames with the trunk on K2; the trunk's
+     operands folded once more than before the steps, K2 once a frame,
+     frames finite, the K2 trunk against float32 as in phase 5;
+  11. one JSON line listing every kernel with its numbers;
+  12. last line: {"ok": true, "device": {...}}.
 
-Times are CUDA-event medians of 5 samples after 2 warm-ups; the kernels,
-their plain versions and the library yardsticks are timed with their
-launches queued behind a spinning card (time_stats), the frames are not.
+Times are CUDA-event medians of 5 samples after 2 warm-ups (a training
+step: of 3 after 1); the kernels, their plain versions and the library
+yardsticks are timed with their launches queued behind a spinning card
+(time_stats), the frames and the steps are not.
 The plain versions are the float32 references (TF32 off for both cuDNN and
 matmul). The library yardsticks run cuDNN with cudnn.benchmark on.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -63,6 +76,10 @@ HR_FRAMES = 4
 HR_SIZE = 1024
 STUDENT_FRAMES = 4
 STUDENT_AVATARS = 4
+TRAIN_SIZE = 512
+TRAIN_BATCH = 2
+TRAIN_STEPS = 3  # timed, after one warm-up step
+SERVE_FRAMES = 2
 # One frame through the chain kernels vs the same frame through the plain
 # (cuDNN bf16) trunk. Both round activations to bf16, at different places,
 # across 16 convs, then 3 upsample blocks and a sigmoid; a first run on an
@@ -715,6 +732,158 @@ def phase_student(torch, dev):
     return dict(ms=ms)
 
 
+TRAIN_IMAGES = ("source", "driving", "source_next", "source_star", "driving_star")
+
+
+def cuda_timed(torch, fn):
+    """(fn(), ms between CUDA events around it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH,
+                policy=None):
+    """Stage-1 training, then serving from the trained weights.
+
+    init_states + make_train_step at `arch`, `size`, `batch`, Config()
+    defaults, seeded weights and batches; 1 warm-up and TRAIN_STEPS timed
+    steps with K2 (use_chain_kernel) and K1 (use_pallas) switched on, which
+    train mode must bypass: K1, K2 and K3 launch 0 times in the steps. G
+    and D move, the rotation net and the loss nets stay bit for bit, G2d's
+    BatchNorm statistics move. Then ReenactmentSession(bn_mode='running')
+    on the trained Gbase: set_source + SERVE_FRAMES frames, the trunk's
+    operands folded once more than before the steps (one frame was served
+    before them), K2 once a frame, and the K2 trunk against float32."""
+    from megaportraits_tpu_torch.core.config import Config
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
+    from megaportraits_tpu_torch.nn.blocks import ResBlock2D
+    from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain_fused as k3
+    from megaportraits_tpu_torch.train.state import trainable_parameters
+    from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
+
+    counters = (k1.conv3x3_bn_act, k2.resblock_chain, k3.fused_resblock_chain)
+
+    def reset_counts():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    cfg = Config()
+    cfg.model.arch = arch
+    cfg.training.steps_per_epoch = 1
+    t0 = time.perf_counter()
+    gbase, disc, ploss, g_state, d_state = init_states(
+        cfg, seed=0, policy=policy or DEFAULT_POLICY, device=dev)
+    n_g = sum(p.numel() for p in gbase.parameters())
+    n_frozen = sum(p.numel() for name, p in gbase.named_parameters()
+                   if "rotation_net" in name)
+    n_d = sum(p.numel() for p in disc.parameters())
+    n_p = sum(p.numel() for p in ploss.parameters())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    batches = [{k: torch.cat([smooth_image(torch, gen, dev, size) for _ in range(batch)])
+                for k in TRAIN_IMAGES} for _ in range(1 + TRAIN_STEPS)]
+    xs = smooth_image(torch, gen, dev, size)
+    frames = [smooth_image(torch, gen, dev, size) for _ in range(SERVE_FRAMES)]
+    print(f"train: {arch.upper()} at {size}x{size}, batch {batch}, G {n_g} parameters "
+          f"({n_frozen} of them the frozen rotation net), D {n_d}, frozen loss nets "
+          f"{n_p}; lr {cfg.training.lr}, {cfg.training.base_epochs} steps in the "
+          f"schedule; set-up {time.perf_counter() - t0:.1f} s")
+
+    # One frame before training, so that the trunk's operands are cached.
+    gbase.g2d.use_chain_kernel = True
+    session = ReenactmentSession(model=gbase, bn_mode="running")
+    session.set_source(xs)
+    session(frames[0])
+    folds_before = gbase.g2d.trunk_cache.folds
+    del session
+
+    g_leaf, d_leaf = "g2d.res0.conv1.weight", "block0_conv.weight"
+    g_before = gbase.get_parameter(g_leaf).detach().clone()
+    d_before = disc.get_parameter(d_leaf).detach().clone()
+    frozen_before = {name: p.detach().clone() for name, p in gbase.named_parameters()
+                     if "rotation_net" in name}
+    ploss_before = [p.detach().clone() for p in ploss.parameters()]
+    stats_before = {name: b.clone() for name, b in gbase.g2d.named_buffers()}
+    blocks = [m for m in gbase.modules() if isinstance(m, ResBlock2D)]
+    for m in blocks:
+        m.use_pallas = True
+    check(len(trainable_parameters(gbase)) < len(list(gbase.parameters())),
+          "the rotation net is not frozen")
+
+    step = make_train_step(ploss, cfg)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i, b in enumerate(batches):
+        (g_state, d_state, metrics, xhat), ms = cuda_timed(
+            torch, lambda: step(g_state, d_state, b))
+        step_ms.append(ms)
+        values = {k: v.item() for k, v in metrics.items()}
+        print(f"train step {i}{' (warm-up)' if i == 0 else ''}: {ms:.3f} ms, "
+              + ", ".join(f"{k} {v:.6g}" for k, v in values.items()))
+        for k, v in values.items():
+            check(math.isfinite(v), f"step {i}: {k} is not finite ({v})")
+        check(tuple(xhat.shape) == (batch, size, size, 3), f"xhat shape {xhat.shape}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    for m in blocks:
+        m.use_pallas = False
+    ms = statistics.median(step_ms[1:])
+    print(f"train launches over {len(batches)} steps: {launches} (K1, K2 and K3 must "
+          f"stay 0: train-mode BatchNorm cannot fold into them)")
+    print(f"train: {ms:.3f} ms/step (median of {TRAIN_STEPS} after 1 warm-up; "
+          f"samples {[round(t, 3) for t in step_ms]}) = {1e3 / ms:.3f} steps/s, "
+          f"{batch * 1e3 / ms:.3f} samples/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated) | {smi}")
+    check(all(n == 0 for n in launches.values()), f"kernels launched in training: {launches}")
+    check(not torch.equal(gbase.get_parameter(g_leaf), g_before), f"G's {g_leaf} did not move")
+    check(not torch.equal(disc.get_parameter(d_leaf), d_before), f"D's {d_leaf} did not move")
+    for name, p in gbase.named_parameters():
+        if name in frozen_before:
+            check(torch.equal(p, frozen_before[name]), f"frozen {name} moved")
+    for p, q in zip(ploss.parameters(), ploss_before, strict=True):
+        check(torch.equal(p, q), "a loss-net parameter moved")
+    moved = sum(not torch.equal(b, stats_before[name])
+                for name, b in gbase.g2d.named_buffers())
+    print(f"train: G and D moved; the rotation net ({len(frozen_before)} tensors) and "
+          f"the loss nets ({len(ploss_before)} tensors) are bit for bit as before; "
+          f"{moved} of {len(stats_before)} G2d BatchNorm statistics moved")
+    check(moved > 0, "no G2d BatchNorm statistic moved")
+
+    # Serve from the trained weights, the trunk on K2.
+    del batches, xhat, metrics
+    gbase.g2d.use_chain_kernel = True
+    session = ReenactmentSession(model=gbase, bn_mode="running")
+    reset_counts()
+    session.set_source(xs)
+    outs = [session(xd) for xd in frames]
+    served = counts()
+    folds = gbase.g2d.trunk_cache.folds - folds_before
+    print(f"serve after train: {SERVE_FRAMES} frames, launches {served}, trunk operands "
+          f"folded {folds} more time(s) than before the steps")
+    check(folds == 1, f"the trunk's operands folded {folds} times after training, want 1")
+    check(served["resblock_chain"] == SERVE_FRAMES,
+          f"K2 ran {served['resblock_chain']} times, want {SERVE_FRAMES}")
+    for out in outs:
+        check(tuple(out.shape) == (1, size, size, 3), f"served frame shape {out.shape}")
+        check(torch.isfinite(out).all().item(), "served frame not finite")
+    stack = torch.cat(outs)
+    print(f"served frames: std {stack.std().item():.5f}, mean {stack.mean().item():.5f}")
+    trunk_against_float32(torch, gbase, session, frames[0])
+    return dict(ms=ms, peak=peak)
+
+
 def main():
     import torch
 
@@ -754,6 +923,8 @@ def main():
     phase_hr(torch, dev)
     torch.cuda.empty_cache()
     phase_student(torch, dev)
+    torch.cuda.empty_cache()
+    phase_train(torch, dev, smi)
 
     k1_main = k1_rows[0]
     kernels = [

@@ -12,6 +12,9 @@
 
 ``encode_source`` + ``drive`` split this for streaming: everything that
 depends only on the source runs once, the rest once per driving frame.
+Training (``train/train_base.py``) calls ``encode_appearance``,
+``encode_motion`` and ``synthesize`` on batched descriptor mixes;
+``pairwise_outputs`` is the pairwise-transfer pass on its own.
 ``build_gbase`` is the factory; it runs on the card unless asked otherwise.
 """
 
@@ -76,6 +79,12 @@ class Gbase(nn.Module):
         projected = vc2d_warped.sum(dim=1)  # orthographic projection
         return self.g2d(projected, train)
 
+    def encode_motion(self, x: torch.Tensor, train: bool = False):
+        return self.motion_encoder(x, train)
+
+    def encode_appearance(self, x: torch.Tensor, train: bool = False):
+        return self.appearance_encoder(x, train)
+
     def encode_source(self, xs: torch.Tensor, train: bool = False):
         """One-time source encoding for streaming reenactment: appearance
         volume, source motion, source->canonical warp and G3d."""
@@ -92,6 +101,19 @@ class Gbase(nn.Module):
         vc2d_warped = apply_warping_field(source_state["vc2d"], w_c2d,
                                           self.warp_normalize_mode)
         return self.g2d(vc2d_warped.sum(dim=1), train)
+
+    def pairwise_outputs(self, i1: torch.Tensor, i2: torch.Tensor,
+                         train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The pairwise-transfer passes: appearance of i1 with (pose of i2,
+        expression of i1) and with (pose of i1, expression of i2) -> (I_pose,
+        I_exp). Both warp generators get the same mixed descriptors, as in
+        the reference."""
+        vs1, es1 = self.appearance_encoder(i1, train)
+        rs1, ts1, zs1 = self.motion_encoder(i1, train)
+        rs2, ts2, zs2 = self.motion_encoder(i2, train)
+        i_pose = self.synthesize(vs1, es1, rs2, ts2, zs1, rs2, ts2, zs1, train)
+        i_exp = self.synthesize(vs1, es1, rs1, ts1, zs2, rs1, ts1, zs2, train)
+        return i_pose, i_exp
 
     def pyramids(self, xhat: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {str(s): anti_alias_downsample(xhat, s) for s in PYRAMID_SCALES}

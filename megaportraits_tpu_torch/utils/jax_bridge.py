@@ -17,7 +17,11 @@ JAX. Module names match between the two packages; the rules are:
     ``running_var``; other leaves keep their names.
 
 Modules without parameters (InstanceNorm, GroupNorm32) have no leaves on
-either side.
+either side. The same rules cover the training modules (Discriminator,
+PerceptualLoss with its VGG19 and LPIPS trunks). A gradient tree has the
+params tree's structure, so it crosses the same way:
+``jax_to_state_dict({"params": grads})`` gives each gradient under the
+name of the port parameter it belongs to, in the port's layout.
 
 The two flattens that feed a dense layer (Eapp's [B,2,2,512] descriptor and
 Emtn's tiled expression pool) are computed in the same (h, w, c) order as

@@ -81,6 +81,27 @@ def test_full_forward_and_pyramids(case):
         np.testing.assert_allclose(n(pyr[k]), np.asarray(jpyr[k]), **OUT_TOL)
 
 
+def test_pairwise_outputs_and_encoders(case):
+    """The training entry points: encode_appearance, encode_motion and the
+    pairwise-transfer pass (pose of xd with the expression of xs, and the
+    reverse), in eval mode."""
+    jmod, v, xs, xd = case
+    japp, jmot, (jpose, jexp) = jax.jit(lambda v, a, b: (
+        jmod.apply(v, a, method=JGbase.encode_appearance),
+        jmod.apply(v, a, method=JGbase.encode_motion),
+        jmod.apply(v, a, b, method=JGbase.pairwise_outputs)))(v, xs, xd)
+    model = _torch_model(v)
+    with torch.no_grad():
+        app = model.encode_appearance(t(xs))
+        mot = model.encode_motion(t(xs))
+        pose, exp = model.pairwise_outputs(t(xs), t(xd))
+    for got, want in zip([*app, *mot], [*japp, *jmot], strict=True):
+        np.testing.assert_allclose(n(got), np.asarray(want), **MID_TOL)
+    assert not np.allclose(np.asarray(jpose), np.asarray(jexp))
+    np.testing.assert_allclose(n(pose), np.asarray(jpose), **OUT_TOL)
+    np.testing.assert_allclose(n(exp), np.asarray(jexp), **OUT_TOL)
+
+
 @pytest.mark.parametrize("bn_mode", ["running", "batch"])
 def test_session_matches_jax_session(case, bn_mode):
     """Both bn modes; 'batch' must leave the running statistics untouched

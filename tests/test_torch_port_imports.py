@@ -1,0 +1,43 @@
+"""The port imports nothing of JAX, flax or the JAX package.
+
+A fresh interpreter blocks ``jax`` and ``flax`` (an import of either
+raises), imports every module of ``megaportraits_tpu_torch`` and lists the
+modules of the JAX package that got loaded: there must be none. Every
+module imports on a host without a card (the kernels are built and
+``triton``/``nvcc`` reached only when a kernel is launched).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+SCRIPT = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import megaportraits_tpu_torch as pkg
+names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules
+                if m == "megaportraits_tpu" or m.startswith("megaportraits_tpu."))
+print(json.dumps({"imported": names, "jax_package": loaded}))
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["jax_package"] == []
+    for name in ("megaportraits_tpu_torch.train.train_base",
+                 "megaportraits_tpu_torch.losses.perceptual",
+                 "megaportraits_tpu_torch.models.discriminator",
+                 "megaportraits_tpu_torch.core.config",
+                 "megaportraits_tpu_torch.utils.profile_drive"):
+        assert name in result["imported"]

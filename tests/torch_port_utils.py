@@ -47,8 +47,15 @@ def numpy_init(module, *inputs, seed=0, stats_seed=None, **kwargs):
     dense kernels uniform +-1/sqrt(fan_in) (torch's default), norm scales
     and weights U(0.8, 1.2), embedding tables N(0, 1), other leaves (biases)
     N(0, 0.05). `stats_seed` as in ``init_jax``."""
-    rng = np.random.default_rng(seed)
     shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *inputs, **kwargs)
+    v = numpy_fill(shapes, seed)
+    return randomize_batch_stats(v, stats_seed) if stats_seed is not None else v
+
+
+def numpy_fill(tree, seed=0):
+    """``numpy_init``'s draws for every leaf of `tree` (arrays or shape
+    structs): a numpy tree of float32 arrays of the same shapes."""
+    rng = np.random.default_rng(seed)
 
     def draw(path, s):
         name = str(getattr(path[-1], "key", path[-1]))
@@ -63,8 +70,7 @@ def numpy_init(module, *inputs, seed=0, stats_seed=None, **kwargs):
             a = rng.normal(size=s.shape) * 0.05
         return a.astype(np.float32)
 
-    v = jax.tree_util.tree_map_with_path(draw, unfreeze(shapes))
-    return randomize_batch_stats(v, stats_seed) if stats_seed is not None else v
+    return jax.tree_util.tree_map_with_path(draw, unfreeze(tree))
 
 
 def bridged(torch_module, variables):
