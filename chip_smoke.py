@@ -47,8 +47,26 @@ Phases, in order; any failure exits non-zero:
      'running'), set_source + 2 frames with the trunk on K2; the trunk's
      operands folded once more than before the steps, K2 once a frame,
      frames finite, the K2 trunk against float32 as in phase 5;
-  11. one JSON line listing every kernel with its numbers;
-  12. last line: {"ok": true, "device": {...}}.
+  11. stage-2 training: init_hr_state + make_hr_train_step, FULL,
+     stage2-hr.yaml's shapes (base 512, Genh at 1024, batch 2, lr 1e-5),
+     bf16 compute, a seeded frozen Gbase with calibrated BatchNorms and its
+     trunk on K2; 1 warm-up and 3 timed steps: every metric, ms/step,
+     steps/s and peak memory beside the card's name and power limit; K2
+     twice a step (once a sample) and K1 16 times each K2; Genh and its
+     statistics moved, Gbase and VGG19 bit for bit; Genh's state through
+     CheckpointManager and back into a fresh state, bit for bit, and one
+     Genh frame from it within 1e-6;
+  12. stage-3 training: init_student_state + make_student_train_step,
+     FULL, stage3-student.yaml's shapes (512, batch 4, 4 avatars, lr 1e-4),
+     the inline GHR teacher (calibrated, its trunk on K2); 1 warm-up and 3
+     timed steps as in 11, K2 four times a step, the Student and its
+     statistics moved, the teacher bit for bit; make_teacher_forward in
+     'running' (K2 once a sample), 'batch' (no K2, no statistic changed)
+     and include_enh=False ([0, 1]); one step on a batch with 'target01'
+     (no teacher, no kernel);
+  13. one JSON line listing every kernel with its numbers, the launches
+     summed over the driven paths (phases 5, 7, 10, 11 and 12);
+  14. last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 5 samples after 2 warm-ups (a training
 step: of 3 after 1); the kernels, their plain versions and the library
@@ -685,7 +703,7 @@ def phase_hr(torch, dev):
           f"{HR_SIZE}x{HR_SIZE} (drive at {size} with the trunk on K2 + "
           f"bilinear x2 + Genh); Genh alone {genh_ms:.3f} ms = "
           f"{genh_ms / ms:.1%} of the frame")
-    return dict(ms=ms, genh_ms=genh_ms)
+    return dict(ms=ms, genh_ms=genh_ms, launches=launches)
 
 
 def phase_student(torch, dev):
@@ -735,6 +753,24 @@ def phase_student(torch, dev):
 TRAIN_IMAGES = ("source", "driving", "source_next", "source_star", "driving_star")
 
 
+def kernel_counters():
+    from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain_fused as k3
+
+    return (k1.conv3x3_bn_act, k2.resblock_chain, k3.fused_resblock_chain)
+
+
+def reset_counts():
+    for fn in kernel_counters():
+        fn.launches = 0
+
+
+def counts():
+    """Launches of K1, K2 and K3 since the last reset_counts()."""
+    return {fn.__name__: fn.launches for fn in kernel_counters()}
+
+
 def cuda_timed(torch, fn):
     """(fn(), ms between CUDA events around it)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -763,20 +799,8 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
     from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
     from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
     from megaportraits_tpu_torch.nn.blocks import ResBlock2D
-    from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
-    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
-    from megaportraits_tpu_torch.ops.kernels import resblock_chain_fused as k3
     from megaportraits_tpu_torch.train.state import trainable_parameters
     from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
-
-    counters = (k1.conv3x3_bn_act, k2.resblock_chain, k3.fused_resblock_chain)
-
-    def reset_counts():
-        for fn in counters:
-            fn.launches = 0
-
-    def counts():
-        return {fn.__name__: fn.launches for fn in counters}
 
     cfg = Config()
     cfg.model.arch = arch
@@ -881,7 +905,266 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
     stack = torch.cat(outs)
     print(f"served frames: std {stack.std().item():.5f}, mean {stack.mean().item():.5f}")
     trunk_against_float32(torch, gbase, session, frames[0])
-    return dict(ms=ms, peak=peak)
+    return dict(ms=ms, peak=peak, launches=served)
+
+
+# configs/training/stage2-hr.yaml and stage3-student.yaml (read by hand: the
+# card's machine has no YAML package).
+HR_TRAIN = dict(size=512, batch=2, lr=1.0e-5)
+STUDENT_TRAIN = dict(size=512, batch=4, lr=1.0e-4, avatars=4)
+
+
+def stage_config(arch, lr, avatars=4):
+    from megaportraits_tpu_torch.core.config import Config
+
+    cfg = Config()
+    cfg.model.arch = arch
+    cfg.training.lr = lr
+    cfg.training.num_avatars = avatars
+    cfg.training.steps_per_epoch = 1
+    return cfg
+
+
+def state_copy(*modules):
+    return [{k: v.detach().clone() for k, v in m.state_dict().items()} for m in modules]
+
+
+def same_state(torch, module, before):
+    return all(torch.equal(v, before[k]) for k, v in module.state_dict().items())
+
+
+def moved(torch, module, before):
+    """(parameters that moved, buffers that moved, buffers)."""
+    params = sum(not torch.equal(p, before[k]) for k, p in module.named_parameters())
+    bufs = list(module.named_buffers())
+    return params, sum(not torch.equal(b, before[k]) for k, b in bufs), len(bufs)
+
+
+def timed_steps(torch, step, state, batches, name):
+    """Run step(state, b) over batches (the first a warm-up) with CUDA
+    events; check every metric finite. Returns (state, ms per step)."""
+    step_ms = []
+    for i, b in enumerate(batches):
+        (state, metrics), ms = cuda_timed(torch, lambda: step(state, b))
+        step_ms.append(ms)
+        values = {k: v.item() for k, v in metrics.items()}
+        print(f"{name} step {i}{' (warm-up)' if i == 0 else ''}: {ms:.3f} ms, "
+              + ", ".join(f"{k} {v:.6g}" for k, v in values.items()))
+        for k, v in values.items():
+            check(math.isfinite(v), f"{name} step {i}: {k} is not finite ({v})")
+    return state, step_ms
+
+
+def report_steps(torch, name, step_ms, batch, smi):
+    ms = statistics.median(step_ms[1:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{name}: {ms:.3f} ms/step (median of {len(step_ms) - 1} after 1 warm-up; "
+          f"samples {[round(t, 3) for t in step_ms]}) = {1e3 / ms:.3f} steps/s, "
+          f"{batch * 1e3 / ms:.3f} samples/s; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated) | {smi}")
+    return ms, peak
+
+
+def check_trunk_launches(name, launches, k2_calls, trunk_blocks):
+    """K2 `k2_calls` times, K1 2 x trunk_blocks times each, K3 never."""
+    want = {"conv3x3_bn_act": 2 * trunk_blocks * k2_calls, "resblock_chain": k2_calls,
+            "fused_resblock_chain": 0}
+    check(launches == want, f"{name} launches {launches}, want {want}")
+
+
+def phase_train_hr(torch, dev, smi, arch="full", size=HR_TRAIN["size"],
+                   batch=HR_TRAIN["batch"], policy=None):
+    """Stage-2 training: init_hr_state + make_hr_train_step at `arch`, base
+    `size`, HR 2 x size, `batch`, stage2-hr.yaml's lr; a seeded Gbase with
+    its BatchNorms calibrated, frozen, its trunk on K2. 1 warm-up and
+    TRAIN_STEPS timed steps: every metric finite, K2 `batch` times a step
+    and K1 16 times each K2, Genh and its statistics moved, Gbase and VGG19
+    bit for bit. Then Genh's state through CheckpointManager and back into
+    a fresh init_hr_state: parameters, buffers and AdamW's state bit for
+    bit, one Genh frame within 1e-6."""
+    import tempfile
+
+    from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from megaportraits_tpu_torch.models.gbase import calibrate_batch_norm
+    from megaportraits_tpu_torch.train.train_hr import init_hr_state, make_hr_train_step
+
+    policy = policy or DEFAULT_POLICY
+    cfg = stage_config(arch, HR_TRAIN["lr"])
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    gbase = cfg.make_gbase(policy=policy, device=dev, seed=0)
+    calibrate_batch_norm(gbase, smooth_image(torch, gen, dev, size),
+                         smooth_image(torch, gen, dev, size))
+    gbase.requires_grad_(False)
+    gbase.g2d.use_chain_kernel = True
+    genh, ploss, state = init_hr_state(cfg, seed=1, policy=policy, image_size=size,
+                                       device=dev)
+
+    def images(n, s):
+        return torch.cat([smooth_image(torch, gen, dev, s) for _ in range(n)])
+
+    batches = [{"source": images(batch, size), "driving": images(batch, size),
+                "target_hr": images(batch, 2 * size)} for _ in range(1 + TRAIN_STEPS)]
+    gbase_before, ploss_before, genh_before = state_copy(gbase, ploss, genh)
+    print(f"train HR: {arch.upper()}, base {size}x{size} -> Genh at {2 * size}x{2 * size}, "
+          f"batch {batch}, Genh {sum(p.numel() for p in genh.parameters())} parameters, "
+          f"frozen Gbase {sum(p.numel() for p in gbase.parameters())} (trunk on K2), "
+          f"VGG19 {sum(p.numel() for p in ploss.parameters())}; lr {cfg.training.lr}, "
+          f"{cfg.training.hr_epochs} steps in the schedule; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    step = make_hr_train_step(genh, gbase, ploss, cfg)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, step_ms = timed_steps(torch, step, state, batches, "train HR")
+    launches = counts()
+    ms, peak = report_steps(torch, "train HR", step_ms, batch, smi)
+    print(f"train HR launches over {len(batches)} steps: {launches}")
+    check_trunk_launches("train HR", launches, batch * len(batches),
+                         len(gbase.g2d.trunk_names))
+    n_moved, stats_moved, n_stats = moved(torch, genh, genh_before)
+    print(f"train HR: {n_moved} of {len(genh_before) - n_stats} Genh parameters and "
+          f"{stats_moved} of {n_stats} BatchNorm statistics moved; Gbase and VGG19 bit "
+          f"for bit: {same_state(torch, gbase, gbase_before)}, {same_state(torch, ploss, ploss_before)}")
+    check(n_moved > 0 and stats_moved > 0, "Genh or its statistics did not move")
+    check(same_state(torch, gbase, gbase_before), "the frozen Gbase changed")
+    check(same_state(torch, ploss, ploss_before), "the VGG19 loss net changed")
+    del batches
+
+    with tempfile.TemporaryDirectory() as directory:
+        check(CheckpointManager(directory).save(state.step, {"genh": state}),
+              "CheckpointManager refused the save")
+        size_mb = sum(f.stat().st_size for f in Path(directory).rglob("*")
+                      if f.is_file()) / 1e6
+        genh2, _, state2 = init_hr_state(cfg, seed=2, policy=policy, image_size=size,
+                                         device=dev)
+        CheckpointManager(directory).restore({"genh": state2})
+    same_model = all(torch.equal(v, genh2.state_dict()[k])
+                     for k, v in genh.state_dict().items())
+    same_adamw = all(
+        state.tx.adamw.state[p].keys() == state2.tx.adamw.state[q].keys()
+        and all(torch.equal(v, state2.tx.adamw.state[q][k])
+                for k, v in state.tx.adamw.state[p].items())
+        for p, q in zip(state.params, state2.params, strict=True))
+    same_count = (state.tx.schedule.last_epoch == state2.tx.schedule.last_epoch
+                  and state.step == state2.step)
+    x = smooth_image(torch, gen, dev, 2 * size)
+    genh.eval()
+    genh2.eval()
+    with torch.no_grad():
+        frame_diff = (genh(x) - genh2(x)).abs().max().item()
+    print(f"checkpoint round trip ({size_mb:.1f} MB at step {state.step}): parameters "
+          f"and buffers bit for bit {same_model}, AdamW state {same_adamw}, schedule and "
+          f"step {same_count}; one Genh frame max abs {frame_diff:.3g} (limit 1e-6)")
+    check(same_model and same_adamw and same_count, "the restored state differs")
+    check(frame_diff <= 1e-6, f"the restored Genh's frame differs by {frame_diff}")
+    return dict(ms=ms, peak=peak, launches=launches)
+
+
+def phase_train_student(torch, dev, smi, arch="full", size=STUDENT_TRAIN["size"],
+                        batch=STUDENT_TRAIN["batch"], policy=None):
+    """Stage-3 training: init_student_state + make_student_train_step at
+    `arch`, `size`, `batch`, stage3-student.yaml's lr and avatars; the
+    inline GHR teacher with calibrated BatchNorms, its trunk on K2. 1
+    warm-up and TRAIN_STEPS timed steps: K2 `batch` times a step, the
+    Student and its statistics moved, the teacher bit for bit. Then
+    make_teacher_forward once in each mode ('running': K2 `batch` times;
+    'batch': no K2, no statistic changed; include_enh=False: in [0, 1]),
+    and one step on a batch that carries 'target01' (no teacher, no
+    kernel)."""
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from megaportraits_tpu_torch.models.gbase import calibrate_batch_norm
+    from megaportraits_tpu_torch.models.genh import build_ghr
+    from megaportraits_tpu_torch.nn.layers import calibrate_batch_norm_with
+    from megaportraits_tpu_torch.train.train_student import (
+        init_student_state,
+        make_student_train_step,
+        make_teacher_forward,
+    )
+
+    policy = policy or DEFAULT_POLICY
+    avatars = STUDENT_TRAIN["avatars"]
+    cfg = stage_config(arch, STUDENT_TRAIN["lr"], avatars)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+
+    def images(n):
+        return torch.cat([smooth_image(torch, gen, dev, size) for _ in range(n)])
+
+    teacher = build_ghr(arch, policy=policy, device=dev, seed=2)
+    xs, xd = images(1), images(1)
+    n_bn = calibrate_batch_norm(teacher.gbase, xs, xd)
+    n_bn += calibrate_batch_norm_with(
+        teacher.genh, lambda: teacher.genh(teacher.gbase.generate(xs, xd), train=True))
+    teacher.requires_grad_(False)
+    teacher.gbase.g2d.use_chain_kernel = True
+    student, state = init_student_state(cfg, seed=3, policy=policy, image_size=size,
+                                        device=dev)
+    index = torch.arange(batch, device=dev) % avatars
+    batches = [{"source": images(batch), "driving": images(batch), "avatar_index": index}
+               for _ in range(1 + TRAIN_STEPS)]
+    teacher_before, student_before = state_copy(teacher, student)
+    trunk_blocks = len(teacher.gbase.g2d.trunk_names)
+    print(f"train Student: {arch.upper()} at {size}x{size}, batch {batch}, {avatars} "
+          f"avatars, Student {sum(p.numel() for p in student.parameters())} parameters, "
+          f"GHR teacher {sum(p.numel() for p in teacher.parameters())} ({n_bn} "
+          f"BatchNorms calibrated, trunk on K2); lr {cfg.training.lr}, "
+          f"{cfg.training.student_epochs} steps in the schedule; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    step = make_student_train_step(student, teacher, cfg)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, step_ms = timed_steps(torch, step, state, batches, "train Student")
+    launches = counts()
+    ms, peak = report_steps(torch, "train Student", step_ms, batch, smi)
+    print(f"train Student launches over {len(batches)} steps (teacher inline): {launches}")
+    check_trunk_launches("train Student", launches, batch * len(batches), trunk_blocks)
+    n_moved, stats_moved, n_stats = moved(torch, student, student_before)
+    print(f"train Student: {n_moved} of {len(student_before) - n_stats} parameters and "
+          f"{stats_moved} of {n_stats} BatchNorm statistics moved; the teacher bit for "
+          f"bit: {same_state(torch, teacher, teacher_before)}")
+    check(n_moved > 0 and stats_moved > 0, "the Student or its statistics did not move")
+    check(same_state(torch, teacher, teacher_before), "the teacher changed in the steps")
+
+    b = batches[-1]
+    total = dict(launches)
+    targets = {}
+    for include_enh, bn_mode in ((True, "running"), (True, "batch"), (False, "running")):
+        reset_counts()
+        out = make_teacher_forward(teacher, include_enh, bn_mode)(b["source"], b["driving"])
+        torch.cuda.synchronize()
+        got = counts()
+        total = {k: total[k] + got[k] for k in total}
+        k2_calls = batch if bn_mode == "running" else 0
+        print(f"teacher forward include_enh={include_enh} bn_mode={bn_mode}: launches "
+              f"{got}; output [{out.min().item():.4f}, {out.max().item():.4f}], mean "
+              f"{out.mean().item():.5f}, std {out.std().item():.5f}")
+        check_trunk_launches(f"teacher forward {bn_mode}", got, k2_calls, trunk_blocks)
+        check(tuple(out.shape) == (batch, size, size, 3) and out.dtype == torch.float32,
+              f"teacher target {tuple(out.shape)} {out.dtype}")
+        check(torch.isfinite(out).all().item(), "teacher target not finite")
+        check(out.min().item() >= 0.0 and out.max().item() <= 1.0,
+              "teacher target outside [0, 1]")
+        check(same_state(torch, teacher, teacher_before),
+              f"the teacher changed in bn_mode={bn_mode}")
+        targets[(include_enh, bn_mode)] = out
+    check(not torch.equal(targets[(True, "running")], targets[(True, "batch")]),
+          "the two bn_modes give the same target")
+
+    reset_counts()
+    given = {"driving": b["driving"], "avatar_index": index,
+             "target01": targets[(True, "running")]}
+    state, metrics = step(state, given)
+    got = counts()
+    print(f"train Student step with target01: loss_student "
+          f"{metrics['loss_student'].item():.6g}, launches {got}")
+    check(math.isfinite(metrics["loss_student"].item()), "loss_student not finite")
+    check_trunk_launches("train Student with target01", got, 0, trunk_blocks)
+    return dict(ms=ms, peak=peak, launches=total)
 
 
 def main():
@@ -920,11 +1203,20 @@ def main():
     k3_launches = phase_k3_path(torch, model, session, frames)
     del model, session, frames
     torch.cuda.empty_cache()
-    phase_hr(torch, dev)
+    paths = [launches]
+    paths.append(phase_hr(torch, dev)["launches"])
     torch.cuda.empty_cache()
     phase_student(torch, dev)
     torch.cuda.empty_cache()
-    phase_train(torch, dev, smi)
+    paths.append(phase_train(torch, dev, smi)["launches"])
+    torch.cuda.empty_cache()
+    paths.append(phase_train_hr(torch, dev, smi)["launches"])
+    torch.cuda.empty_cache()
+    paths.append(phase_train_student(torch, dev, smi)["launches"])
+    # Launches over every driven path: stage 1, HR serving, serving after
+    # stage-1 training, the HR step, the Student step and its teacher.
+    launches = {k: sum(p.get(k, 0) for p in paths) for k in launches}
+    print(f"launches over every driven path: {launches}")
 
     k1_main = k1_rows[0]
     kernels = [

@@ -18,6 +18,13 @@ from megaportraits_tpu_torch.core.device import DEFAULT_DEVICE
 from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from megaportraits_tpu_torch.models.gbase import Gbase, build_gbase
 
+BN_MODES = ("running", "batch")
+
+
+def check_bn_mode(bn_mode: str) -> None:
+    if bn_mode not in BN_MODES:
+        raise ValueError(f"unknown bn_mode: {bn_mode!r}; expected one of {BN_MODES}")
+
 
 class ReenactmentSession:
     def __init__(self, model: Optional[Gbase] = None,
@@ -26,8 +33,7 @@ class ReenactmentSession:
                  arch: Arch = FULL, seed: int = 0):
         """With no `model`, builds a seeded random-weight Gbase on `device`
         (the card by default). A given model is used where it lies."""
-        if bn_mode not in ("running", "batch"):
-            raise ValueError(f"unknown bn_mode: {bn_mode!r}")
+        check_bn_mode(bn_mode)
         if model is None:
             model = build_gbase(arch, policy=policy, device=device, seed=seed)
         self.model = model.eval()

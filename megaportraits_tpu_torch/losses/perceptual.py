@@ -140,17 +140,22 @@ class LPIPS(nn.Module):
 
 class PerceptualLoss(nn.Module):
     """The reference's PerceptualLoss: ``weights['vgg19']`` x the L1 of the
-    VGG19 taps + ``weights['lpips']`` x mean LPIPS + ``weights['gaze']``.
-    The VGG19 trunk is built when its weight is set; LPIPS likewise."""
+    VGG19 taps + ``weights['lpips']`` x mean LPIPS + ``weights['gaze']``,
+    plus the feature-matching L1 of the same taps when ``forward`` is asked
+    for it. The VGG19 trunk is built when its weight is set or when
+    `use_fm_loss` asks for the feature-matching term (JAX builds it from
+    the call, ``w['vgg19'] or use_fm_loss``; torch must know at
+    construction); LPIPS when its weight is set."""
 
     def __init__(self, weights: Optional[Dict[str, float]] = None,
-                 policy: Policy = DEFAULT_POLICY, arch: Arch = FULL, device=None):
+                 policy: Policy = DEFAULT_POLICY, arch: Arch = FULL, device=None,
+                 use_fm_loss: bool = False):
         super().__init__()
         self.weights = dict(weights or DEFAULT_WEIGHTS)
         self.policy = policy
         self.vgg19 = (VGG("vgg19", VGG19_REFERENCE_TAPS, policy=policy, arch=arch,
                           device=device)
-                      if self.weights.get("vgg19", 0.0) else None)
+                      if self.weights.get("vgg19", 0.0) or use_fm_loss else None)
         self.lpips = (LPIPS(policy=policy, arch=arch, device=device)
                       if self.weights.get("lpips", 0.0) else None)
         _constant_buffer(self, "mean", IMAGENET_MEAN, device)
@@ -165,7 +170,8 @@ class PerceptualLoss(nn.Module):
 
         total = torch.zeros((), dtype=torch.float32, device=predicted.device)
         if use_fm_loss and self.vgg19 is None:
-            raise ValueError("use_fm_loss needs the VGG19 trunk (weights['vgg19'])")
+            raise ValueError("use_fm_loss needs the VGG19 trunk: build the loss "
+                             "with use_fm_loss=True")
         if self.vgg19 is not None:
             fp = self.vgg19(p.cast_to_compute(pred_n))
             ft = self.vgg19(p.cast_to_compute(tgt_n))

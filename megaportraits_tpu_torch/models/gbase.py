@@ -12,7 +12,9 @@
 
 ``encode_source`` + ``drive`` split this for streaming: everything that
 depends only on the source runs once, the rest once per driving frame.
-Training (``train/train_base.py``) calls ``encode_appearance``,
+``generate`` is the image without the pyramids (the frozen Gbase of the
+stage-2 and stage-3 steps, GHR, single-pair inference). Training
+(``train/train_base.py``) calls ``encode_appearance``,
 ``encode_motion`` and ``synthesize`` on batched descriptor mixes;
 ``pairwise_outputs`` is the pairwise-transfer pass on its own.
 ``build_gbase`` is the factory; it runs on the card unless asked otherwise.
@@ -63,11 +65,16 @@ class Gbase(nn.Module):
 
     def forward(self, xs: torch.Tensor, xd: torch.Tensor, train: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        xhat = self.generate(xs, xd, train)
+        return xhat, self.pyramids(xhat)
+
+    def generate(self, xs: torch.Tensor, xd: torch.Tensor,
+                 train: bool = False) -> torch.Tensor:
+        """The generated image alone: ``forward`` without the pyramids."""
         vs, es = self.appearance_encoder(xs, train)
         rs, ts, zs = self.motion_encoder(xs, train)
         rd, td, zd = self.motion_encoder(xd, train)
-        xhat = self.synthesize(vs, es, rs, ts, zs, rd, td, zd, train)
-        return xhat, self.pyramids(xhat)
+        return self.synthesize(vs, es, rs, ts, zs, rd, td, zd, train)
 
     def synthesize(self, vs, es, rs, ts, zs, rd, td, zd, train: bool = False):
         """Synthesis from precomputed appearance/motion descriptors."""

@@ -77,8 +77,7 @@ class GHR(nn.Module):
 
     def forward(self, xs: torch.Tensor, xd: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
-        xhat_base, _ = self.gbase(xs, xd, train)
-        return self.genh(xhat_base, train)
+        return self.genh(self.gbase.generate(xs, xd, train), train)
 
 
 def build_genh(arch: Union[str, Arch] = "full", policy: Policy = DEFAULT_POLICY,

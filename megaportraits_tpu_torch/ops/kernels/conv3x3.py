@@ -16,9 +16,11 @@ the SAME padding; a box 64 pixels wide is loaded once per channel slice
 with its halo and serves all nine taps), ``wgmma`` multiplies, and the
 epilogue runs on the accumulators in registers. It takes bf16 x, w and
 residual, float32 scale/shift, contiguous and 16-byte aligned, C % 32 == 0
-and F % 8 == 0; neither x nor the residual may overlap the output. On a CPU
-tensor it runs ``conv3x3_bn_act_plain``, the same function in plain
-PyTorch, which is also the reference the kernel is held against on the card.
+and F % 8 == 0; neither x nor the residual may overlap the output. It has
+no backward: with autograd on, an argument that requires grad raises (as in
+K2 and K3). On a CPU tensor it runs ``conv3x3_bn_act_plain``, the same
+function in plain PyTorch, which is also the reference the kernel is held
+against on the card.
 ``conv3x3_bn_act_boxed`` follows the kernel's data path step by step in
 plain PyTorch, for the tests.
 
@@ -195,7 +197,14 @@ def conv3x3_bn_act_boxed(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 def check_kernel_args(x, w, scale, shift, residual, c_multiple: int = 32):
+    """What every CUDA kernel of the port takes (K1, K2 and K3)."""
     tensors = [x, w, scale, shift] + ([] if residual is None else [residual])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        # The kernels have no backward, and their outputs no autograd node:
+        # a gradient through them would be cut without a word.
+        raise RuntimeError(
+            "the CUDA kernels have no backward: call them under torch.no_grad() "
+            "or on tensors that do not require grad")
     if any(t.device != x.device for t in tensors):
         raise ValueError("all arguments must lie on one device")
     if any(t.dtype != torch.bfloat16 for t in (x, w)) or (

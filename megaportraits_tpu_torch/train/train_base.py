@@ -52,6 +52,7 @@ from megaportraits_tpu_torch.models.discriminator import Discriminator, build_di
 from megaportraits_tpu_torch.models.gbase import Gbase
 from megaportraits_tpu_torch.ops.resize import linear_resize
 from megaportraits_tpu_torch.train.state import TrainState, make_optimizer
+from megaportraits_tpu_torch.utils.pretrained import pretrained_report
 
 
 def init_states(cfg: Config, seed: int = 0, policy: Policy = DEFAULT_POLICY,
@@ -61,7 +62,10 @@ def init_states(cfg: Config, seed: int = 0, policy: Policy = DEFAULT_POLICY,
     random weights on `device` (the card by default; raises if there is
     none and the caller did not ask for the CPU), and the G and D states
     with their optimisers (``cfg.training.lr`` over ``base_epochs *
-    steps_per_epoch`` steps)."""
+    steps_per_epoch`` steps). Prints JAX's report on
+    ``cfg.training.pretrained_path``, and raises where a pretrained bundle
+    lies there (``utils/pretrained.py`` has no loader yet)."""
+    print(pretrained_report(cfg.training.pretrained_path))
     dev = resolve_device(device)
     arch = cfg.make_arch()
     gbase = cfg.make_gbase(policy=policy, device=dev, seed=seed)

@@ -17,6 +17,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -144,8 +145,11 @@ def g2d_case():
 
 
 def _jax_chain(jmod, v, x):
+    # One jitted call. Applied eagerly, it once hung on a loaded CPU: the
+    # main thread in an eager op after the chain, a thread in the
+    # interpreted kernel's callback, both waiting.
     with pltpu.force_tpu_interpret_mode():
-        return np.asarray(jmod.apply(v, jnp.asarray(x)))
+        return np.asarray(jax.jit(jmod.apply)(v, jnp.asarray(x)))
 
 
 def _same(a, b):

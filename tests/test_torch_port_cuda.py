@@ -235,3 +235,25 @@ def test_k1_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # C % 32 != 0
         k1.conv3x3_bn_act(_bf16(x48, cuda), _bf16(kern48, cuda), _t(s48, cuda),
                           _t(sh48, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", [0, 1, 2, 3])
+def test_kernels_refuse_autograd_inputs_on_card(cuda, operand):
+    """The kernels have no backward: with autograd on, an input, weight or
+    folded operand that requires grad raises in K1, K2 and K3 before any
+    launch, instead of cutting the gradient without a word. Under
+    torch.no_grad() the same call launches."""
+    chain = list(_chain_args(18, 8, 8, 32, 1, cuda))
+    chain[operand] = chain[operand].requires_grad_(True)
+    conv = [chain[0], chain[1][0, 0], chain[2][0, 0], chain[3][0, 0]]
+    for fn, args in ((k1.conv3x3_bn_act, conv), (k2.resblock_chain, chain),
+                     (k3.fused_resblock_chain, chain)):
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*args)
+        assert fn.launches == before
+        with torch.no_grad():
+            fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1

@@ -1,9 +1,11 @@
-"""The port imports nothing of JAX, flax or the JAX package.
+"""The port imports nothing of JAX, flax, optax, orbax or the JAX package.
 
-A fresh interpreter blocks ``jax`` and ``flax`` (an import of either
-raises), imports every module of ``megaportraits_tpu_torch`` and lists the
-modules of the JAX package that got loaded: there must be none. Every
-module imports on a host without a card (the kernels are built and
+A fresh interpreter blocks ``jax``, ``flax``, ``optax`` and ``orbax`` (an
+import of any raises), and ``PIL`` and ``cv2``, which the machine with the
+card lacks and which the port imports only inside the functions that read
+or write files; it imports every module of ``megaportraits_tpu_torch`` and
+lists the modules of the JAX package that got loaded: there must be none.
+Every module imports on a host without a card (the kernels are built and
 ``triton``/``nvcc`` reached only when a kernel is launched).
 """
 
@@ -16,8 +18,8 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["flax"] = None
+for blocked in ("jax", "flax", "optax", "orbax", "PIL", "cv2"):
+    sys.modules[blocked] = None
 import megaportraits_tpu_torch as pkg
 names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -36,6 +38,13 @@ def test_port_imports_nothing_of_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["jax_package"] == []
     for name in ("megaportraits_tpu_torch.train.train_base",
+                 "megaportraits_tpu_torch.train.train_hr",
+                 "megaportraits_tpu_torch.train.train_student",
+                 "megaportraits_tpu_torch.core.checkpoint",
+                 "megaportraits_tpu_torch.infer.inference",
+                 "megaportraits_tpu_torch.infer.video",
+                 "megaportraits_tpu_torch.utils.image",
+                 "megaportraits_tpu_torch.utils.pretrained",
                  "megaportraits_tpu_torch.losses.perceptual",
                  "megaportraits_tpu_torch.models.discriminator",
                  "megaportraits_tpu_torch.core.config",

@@ -12,6 +12,8 @@ gradients with respect to the prediction. The convolutions sum in another
 order on each side; the VGG trunks chain up to 16 of them.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +40,7 @@ from megaportraits_tpu_torch.models.discriminator import (
     build_discriminator,
 )
 
-from torch_port_utils import bridged, n, numpy_init, t, uniform
+from torch_port_utils import bridged, n, numpy_fill, numpy_init, t, uniform
 
 ARCHS = {"tiny": (JTINY, TINY), "full": (JFULL, FULL)}
 SCALAR = dict(rtol=1e-5, atol=1e-6)
@@ -196,6 +198,31 @@ def test_perceptual_loss_matches_jax(arch, use_fm_loss):
     got = model(t(pred), t(tgt), use_fm_loss).item()
     np.testing.assert_allclose(got, want, **SCALAR)
     assert model(t(pred), t(pred)).item() == 4.0  # identical images: the constant
+
+
+@pytest.mark.parametrize("arch", ["tiny", "full"])
+def test_perceptual_fm_loss_without_a_vgg19_weight_matches_jax(arch):
+    """weights['vgg19'] = 0 with use_fm_loss: JAX builds VGG19 for the
+    feature-matching term alone; the port builds it when the constructor
+    asks for it, and raises if it was not asked."""
+    ja, ta = ARCHS[arch]
+    size = 64 if arch == "tiny" else 32
+    pred, tgt = _images(25, (2, size, size, 3)), _images(26, (2, size, size, 3))
+    weights = dict(perceptual.DEFAULT_WEIGHTS, vgg19=0.0)
+    jmod = jperc.PerceptualLoss(weights=weights, policy=JP, arch=ja)
+    shapes = jax.eval_shape(functools.partial(jmod.init, use_fm_loss=True),
+                            jax.random.PRNGKey(0), pred, tgt)
+    v = numpy_fill(shapes, 27)
+    assert "vgg19" in v["params"]
+    model = bridged(perceptual.PerceptualLoss(weights, policy=FP32_POLICY, arch=ta,
+                                              use_fm_loss=True), v)
+    want = float(jmod.apply(v, pred, tgt, True))
+    with torch.no_grad():
+        got = model(t(pred), t(tgt), True).item()
+    np.testing.assert_allclose(got, want, **SCALAR)
+    with pytest.raises(ValueError, match="use_fm_loss"):
+        perceptual.PerceptualLoss(weights, policy=FP32_POLICY, arch=ta)(
+            t(pred), t(tgt), True)
 
 
 def test_perceptual_gradient_reaches_the_prediction():

@@ -49,6 +49,7 @@ from megaportraits_tpu.core.dtypes import FP32_POLICY as JP
 from megaportraits_tpu.train import train_base as jtb
 from megaportraits_tpu.train.state import TrainState as JTrainState
 from megaportraits_tpu.train.state import make_optimizer as j_make_optimizer
+from megaportraits_tpu.utils.pretrained import maybe_load_pretrained
 
 from megaportraits_tpu_torch.core import config as tconfig
 from megaportraits_tpu_torch.core.arch import TINY
@@ -62,7 +63,7 @@ from megaportraits_tpu_torch.train.state import (
 from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
 from megaportraits_tpu_torch.utils.jax_bridge import jax_to_state_dict, load_jax_variables
 
-from torch_port_utils import n, numpy_fill, randomize_batch_stats, t
+from torch_port_utils import grad_errors, keep_gradients, n, numpy_fill, randomize_batch_stats, t
 
 SIZE = 64
 METRIC_KEYS = {"loss_G", "loss_G_per", "loss_G_adv", "loss_fm", "loss_G_cos",
@@ -81,15 +82,6 @@ def _tiny(cfg):
 def _batch(seed=0, b=1):
     rng = np.random.default_rng(seed)
     return {k: rng.random((b, SIZE, SIZE, 3)).astype(np.float32) for k in IMAGES}
-
-
-def _keep_gradients():
-    """An optax transformation that applies no update and keeps the
-    gradients as its state."""
-    return optax.GradientTransformation(
-        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
-        lambda grads, state, params=None: (
-            jax.tree_util.tree_map(jnp.zeros_like, grads), grads))
 
 
 def _numpy(tree):
@@ -111,8 +103,8 @@ def reference():
     batch = _batch()
     step = jtb.make_train_step(gbase, disc, ploss, p_vars, cfg, donate=False)
     g2, d2, metrics, xhat = step(
-        JTrainState.create(g_vars["params"], g_vars["batch_stats"], _keep_gradients()),
-        JTrainState.create(d_vars["params"], None, _keep_gradients()), batch)
+        JTrainState.create(g_vars["params"], g_vars["batch_stats"], keep_gradients()),
+        JTrainState.create(d_vars["params"], None, keep_gradients()), batch)
     return dict(g_vars=g_vars, d_vars=d_vars, p_vars=p_vars, batch=batch,
                 metrics={k: float(v) for k, v in metrics.items()},
                 xhat=np.asarray(xhat),
@@ -141,24 +133,6 @@ def port(reference):
     return dict(gbase=gbase, disc=disc, ploss=ploss, g_state=g_state,
                 d_state=d_state, metrics=metrics, xhat=xhat, before=before,
                 disc_before=disc_before, folds_before=folds_before, batch=batch)
-
-
-def _grad_errors(module, jax_grads):
-    """Relative Frobenius error per trainable leaf above 1e-6 of the
-    largest gradient norm, and over those leaves together."""
-    named = trainable_parameters(module)
-    norms = {k: np.linalg.norm(jax_grads[k].numpy()) for k, _ in named}
-    floor = 1e-6 * max(norms.values())
-    per_leaf, got_all, want_all = {}, [], []
-    for k, p in named:
-        if norms[k] <= floor:
-            continue
-        got, want = n(p.grad), jax_grads[k].numpy()
-        per_leaf[k] = np.linalg.norm(got - want) / norms[k]
-        got_all.append(got.ravel())
-        want_all.append(want.ravel())
-    got_all, want_all = np.concatenate(got_all), np.concatenate(want_all)
-    return per_leaf, np.linalg.norm(got_all - want_all) / np.linalg.norm(want_all)
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +260,7 @@ def test_step_prediction_matches_jax(reference, port):
 
 
 def test_step_generator_gradients_match_jax(reference, port):
-    per_leaf, overall = _grad_errors(port["gbase"], reference["g_grads"])
+    per_leaf, overall = grad_errors(port["gbase"], reference["g_grads"])
     assert len(per_leaf) > 250
     worst = max(per_leaf, key=per_leaf.get)
     assert overall <= 3e-2, overall
@@ -298,7 +272,7 @@ def test_step_generator_gradients_match_jax(reference, port):
 
 
 def test_step_discriminator_gradients_match_jax(reference, port):
-    per_leaf, _ = _grad_errors(port["disc"], reference["d_grads"])
+    per_leaf, _ = grad_errors(port["disc"], reference["d_grads"])
     # All but the biases of convs that an InstanceNorm follows (zero).
     assert len(per_leaf) == len(list(port["disc"].parameters())) - (TINY.disc_stages - 1)
     for k, err in per_leaf.items():
@@ -380,3 +354,31 @@ def test_init_states_defaults_to_the_card():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_states(_tiny(tconfig.Config()))
+
+
+@pytest.mark.parametrize("kind", ["empty", "missing", "no-step"])
+def test_init_states_prints_the_pretrained_report_of_jax(kind, tmp_path, capsys):
+    """An empty pretrained_path, one where nothing is, and a directory
+    without an Orbax step: the port prints what JAX's loader reports."""
+    path = {"empty": "", "missing": str(tmp_path / "nothing"),
+            "no-step": str(tmp_path)}[kind]
+    (tmp_path / "notes").mkdir()
+    cfg = _tiny(tconfig.Config())
+    cfg.training.pretrained_path = path
+    init_states(cfg, policy=FP32_POLICY, device="cpu")
+    _, _, want = maybe_load_pretrained(path)
+    assert capsys.readouterr().out.splitlines() == [want]
+
+
+def test_init_states_raises_on_a_pretrained_bundle(tmp_path):
+    """A directory with an Orbax step (a subdirectory named by an integer,
+    which Orbax's manager takes for one) holds a bundle the port cannot
+    load yet: init_states refuses to train on random weights instead."""
+    import orbax.checkpoint as ocp
+
+    (tmp_path / "0").mkdir()
+    assert ocp.CheckpointManager(str(tmp_path)).latest_step() == 0
+    cfg = _tiny(tconfig.Config())
+    cfg.training.pretrained_path = str(tmp_path)
+    with pytest.raises(NotImplementedError, match="no loader"):
+        init_states(cfg, policy=FP32_POLICY, device="cpu")

@@ -6,9 +6,12 @@ variables cross to the port through utils/jax_bridge as numpy trees.
 
 import numpy as np
 import jax
+import jax.numpy as jnp
+import optax
 import torch
 from flax.core import unfreeze
 
+from megaportraits_tpu_torch.train.state import trainable_parameters
 from megaportraits_tpu_torch.utils.jax_bridge import load_jax_variables
 
 
@@ -91,3 +94,33 @@ def n(x):
 def uniform(rng, shape, lo=-1.0, hi=1.0):
     return rng.uniform(lo, hi, shape).astype(np.float32)
 
+
+
+def keep_gradients():
+    """An optax transformation that applies no update and keeps the
+    gradients as its state, so that a JAX train step hands its gradients
+    out in ``opt_state``."""
+    return optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda grads, state, params=None: (
+            jax.tree_util.tree_map(jnp.zeros_like, grads), grads))
+
+
+def grad_errors(module, jax_grads):
+    """Relative Frobenius error of each trainable parameter's ``.grad``
+    against `jax_grads` (port keys, ``jax_to_state_dict`` of the gradient
+    tree), for leaves above 1e-6 of the largest gradient norm, and over
+    those leaves together."""
+    named = trainable_parameters(module)
+    norms = {k: np.linalg.norm(jax_grads[k].numpy()) for k, _ in named}
+    floor = 1e-6 * max(norms.values())
+    per_leaf, got_all, want_all = {}, [], []
+    for k, p in named:
+        if norms[k] <= floor:
+            continue
+        got, want = n(p.grad), jax_grads[k].numpy()
+        per_leaf[k] = np.linalg.norm(got - want) / norms[k]
+        got_all.append(got.ravel())
+        want_all.append(want.ravel())
+    got_all, want_all = np.concatenate(got_all), np.concatenate(want_all)
+    return per_leaf, np.linalg.norm(got_all - want_all) / np.linalg.norm(want_all)
