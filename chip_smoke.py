@@ -64,9 +64,35 @@ Phases, in order; any failure exits non-zero:
      'running' (K2 once a sample), 'batch' (no K2, no statistic changed)
      and include_enh=False ([0, 1]); one step on a batch with 'target01'
      (no teacher, no kernel);
-  13. one JSON line listing every kernel with its numbers, the launches
-     summed over the driven paths (phases 5, 7, 10, 11 and 12);
-  14. last line: {"ok": true, "device": {...}}.
+  13. the training drivers (train/main_{base,hr,student}.py), FULL, in a
+     temporary working directory, on 2 clips of 6 smooth frames written
+     straight into EMODataset's npz cache at 512 and 1024 (no cv2 or PyYAML
+     on the card's machine: Configs built here). Their Gbase's trunk is put
+     on K2 from outside: a Config subclass whose make_gbase sets
+     use_chain_kernel, and a wrapper of main_student's build_ghr.
+     - stage 1: train_base at 512, batch 2, unroll 2, save, log and
+       evaluate every 2 steps on 2 tail frames a clip, 4 steps; then again
+       to step 6 at unroll 1: it must print the resume line, go on from
+       step 4 and write the debug PNG. K1, K2 and K3 launch 0 times in both
+       calls. The export restores into a fresh Gbase bit for bit equal to
+       the evaluator's best snapshot, and serves 2 frames with K2;
+     - stage 2: train_hr, base 512 with Genh at 1024, batch 2, 4 steps,
+       evaluation every 2, the frozen Gbase from the stage-1 export (bit for
+       bit); K2 2 a step plus one a row of every evaluated batch; the
+       genh_variables export restores bit for bit;
+     - stage 3: train_student at 512, batch 4, 4 steps, the teacher from a
+       ghr_variables checkpoint written from the two exports (bit for bit
+       after the steps); K2 4 a step.
+     For each: steps/s on the host clock from the first batch request to
+     the return, beside the bare step's CUDA-event ms of phases 9, 11 and
+     12 (the gap is data, prefetch, logging, evaluation and saving), the
+     time in checkpoint saves and in held-out evaluations (each timed on
+     the host clock after a synchronise), the set-up time, the time the
+     driver waited on the prefetch per step, the bytes copied
+     host-to-device per step and the peak memory;
+  14. one JSON line listing every kernel with its numbers, the launches
+     summed over the driven paths (phases 5, 7, 10, 11, 12 and 13);
+  15. last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 5 samples after 2 warm-ups (a training
 step: of 3 after 1); the kernels, their plain versions and the library
@@ -1167,6 +1193,394 @@ def phase_train_student(torch, dev, smi, arch="full", size=STUDENT_TRAIN["size"]
     return dict(ms=ms, peak=peak, launches=total)
 
 
+# The drivers (train/main_*.py) on 2 clips of DRIVER_FRAMES smooth frames,
+# written straight into EMODataset's npz cache: the card's machine has no cv2
+# to decode mp4s, and no PyYAML, so each driver gets a Config built here.
+DRIVER_CLIPS = 2
+DRIVER_FRAMES = 6
+DRIVER_STEPS = 4
+DRIVER_RESUMED_STEPS = 6
+DRIVER_HOLDOUT = 2
+
+
+def write_clips(torch, dev, directory, sizes):
+    """The npz caches of DRIVER_CLIPS clips at each of `sizes`, and the clip
+    list (meta.json)."""
+    import numpy as np
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    ids = [f"clip{i}" for i in range(DRIVER_CLIPS)]
+    for vid in ids:
+        for size in sizes:
+            frames = {k: torch.cat([smooth_image(torch, gen, dev, size)
+                                    for _ in range(DRIVER_FRAMES)]).cpu().numpy()
+                      for k in ("source_frames", "driving_frames")}
+            np.savez(directory / f"{vid}_{size}x{size}_tensors.npz", **frames)
+    (directory / "meta.json").write_text(json.dumps({"clips": {vid: {} for vid in ids}}))
+
+
+def driver_config(work, name, batch=TRAIN_BATCH, **training):
+    """A FULL Config at TRAIN_SIZE whose Gbase runs its G2d trunk on K2
+    (use_chain_kernel), the drivers' own defaults otherwise; clips from
+    work/clips, checkpoints in work/name."""
+    from megaportraits_tpu_torch.core.config import Config
+
+    class K2Config(Config):
+        def make_gbase(self, *args, **kwargs):
+            gbase = super().make_gbase(*args, **kwargs)
+            gbase.g2d.use_chain_kernel = True
+            return gbase
+
+    cfg = K2Config()
+    cfg.data.train_width = cfg.data.train_height = TRAIN_SIZE
+    t = cfg.training
+    t.video_dir = str(work / "clips")
+    t.json_file = str(work / "clips" / "meta.json")
+    t.checkpoint_path = str(work / name)
+    t.batch_size, t.n_sample_frames = batch, DRIVER_FRAMES
+    for k, v in training.items():
+        setattr(t, k, v)
+    return cfg
+
+
+class Patched:
+    """Set module attributes for the length of a `with`, then put back the
+    originals."""
+
+    def __init__(self, module, **attrs):
+        self.module, self.attrs, self.saved = module, attrs, {}
+
+    def __enter__(self):
+        for k, v in self.attrs.items():
+            self.saved[k] = getattr(self.module, k)
+            setattr(self.module, k, v)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.module, k, v)
+
+
+class PrefetchProbe:
+    """Wraps a driver's prefetch_to_device: the time the driver waited on
+    each batch (the consumer's next()), the bytes of each batch (what went
+    host-to-device), the time of the first request."""
+
+    def __init__(self, prefetch):
+        self.prefetch = prefetch
+        self.waits, self.bytes, self.first = [], 0, None
+
+    def __call__(self, iterator, **kwargs):
+        from megaportraits_tpu_torch.data.prefetch import map_leaves
+
+        inner = self.prefetch(iterator, **kwargs)
+
+        def probed():
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    if self.first is None:
+                        self.first = t0
+                    try:
+                        batch = next(inner)
+                    except StopIteration:
+                        return
+                    self.waits.append(time.perf_counter() - t0)
+                    sizes = []
+                    map_leaves(lambda t: sizes.append(t.numel() * t.element_size()), batch)
+                    self.bytes += sum(sizes)
+                    yield batch
+            finally:
+                inner.close()
+
+        return probed()
+
+
+class Tee:
+    """stdout that is also kept, so that a driver's lines can be checked."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def timed(torch, cls, method, calls):
+    """A subclass of `cls` whose `method` appends (the instance, its
+    host-clock seconds) to `calls`, timed after the card has finished what
+    was queued before the call (the method would wait for it anyway: it
+    reads the weights back)."""
+
+    def call(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = getattr(cls, method)(self, *args, **kwargs)
+        calls.append((self, time.perf_counter() - t0))
+        return out
+
+    return type(cls.__name__, (cls,), {method: call})
+
+
+def run_driver(torch, module, fn, steps):
+    """fn() with module.prefetch_to_device probed, the checkpoint saves and
+    the held-out evaluations timed (the evaluators kept), launch counts
+    zeroed, peak memory reset and stdout kept. Returns (result, numbers)."""
+    import contextlib
+
+    probe = PrefetchProbe(module.prefetch_to_device)
+    tee = Tee(sys.stdout)
+    saves, evals = [], []
+    patches = dict(prefetch_to_device=probe, CheckpointManager=timed(
+        torch, module.CheckpointManager, "save", saves))
+    if hasattr(module, "HeldoutEvaluator"):
+        patches["HeldoutEvaluator"] = timed(torch, module.HeldoutEvaluator, "consider",
+                                            evals)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Patched(module, **patches), contextlib.redirect_stdout(tee):
+        out = fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    check(probe.first is not None and probe.waits, "the driver took no batch")
+    return out, dict(
+        launches=counts(), peak=torch.cuda.max_memory_allocated(), text="".join(tee.text),
+        setup_s=probe.first - t0, loop_s=t1 - probe.first, steps=steps,
+        batches=len(probe.waits), wait_ms=[w * 1e3 for w in probe.waits],
+        bytes=probe.bytes, save_ms=[x * 1e3 for _, x in saves],
+        eval_ms=[x * 1e3 for _, x in evals],
+        evaluators=list({id(e): e for e, _ in evals}.values()))
+
+
+def report_driver(name, n, bare_ms, smi):
+    """Print a driver's host-clock rate beside the bare step's CUDA-event
+    time: the gap is data, prefetch, logging, evaluation and saving (the
+    saves, exports included, and the evaluations are timed apart)."""
+    steps = n["steps"]
+    per_step = n["loop_s"] * 1e3 / steps
+    waits, saves, evals = n["wait_ms"], n["save_ms"], n["eval_ms"]
+    print(f"{name}: {steps} steps in {n['loop_s']:.3f} s from the first batch "
+          f"request to the return (host clock) = {steps / n['loop_s']:.3f} steps/s, "
+          f"{per_step:.3f} ms/step; the bare step {bare_ms:.3f} ms (CUDA events, "
+          f"phase above), gap {per_step - bare_ms:.3f} ms/step: saving "
+          f"{sum(saves) / steps:.3f} ms/step ({len(saves)} saves, ms "
+          f"{[round(x, 1) for x in saves]}), evaluating {sum(evals) / steps:.3f} ms/step "
+          f"({[round(x, 1) for x in evals]}), prefetch wait {sum(waits) / steps:.3f} "
+          f"ms/step (first batch {waits[0]:.3f} ms, then {[round(w, 3) for w in waits[1:]]}); "
+          f"set-up {n['setup_s']:.3f} s; host-to-device {n['bytes'] / steps / 2 ** 20:.3f} "
+          f"MiB/step over {n['batches']} batches; peak memory {n['peak'] / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated) | {smi}")
+
+
+def step_dirs(path):
+    return sorted(int(p.name) for p in Path(path).iterdir() if p.name.isdigit())
+
+
+def same_weights(torch, module, state_dict):
+    got = module.state_dict()
+    return got.keys() == state_dict.keys() and all(
+        torch.equal(v.cpu(), state_dict[k]) for k, v in got.items())
+
+
+def phase_driver_base(torch, dev, smi, work, bare_ms):
+    """Stage-1 driver: train_base at FULL 512x512, batch 2, unroll 2,
+    evaluation every 2 steps on DRIVER_HOLDOUT tail frames of each clip,
+    DRIVER_STEPS steps; then a second call to DRIVER_RESUMED_STEPS at unroll
+    1 that must resume from step DRIVER_STEPS and write the debug PNG. No K1,
+    K2 or K3 in either call (train mode and batch-statistics evaluation
+    bypass them). The export restores into a fresh Gbase bit for bit equal
+    to the evaluator's best snapshot; 2 frames served from it with K2."""
+    from megaportraits_tpu_torch.infer.inference import restore_gbase
+    from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
+    from megaportraits_tpu_torch.train import main_base
+
+    numbers, evaluators = [], []
+    for unroll, max_steps, start in ((2, DRIVER_STEPS, 0),
+                                     (1, DRIVER_RESUMED_STEPS, DRIVER_STEPS)):
+        cfg = driver_config(work, "base", unroll_steps=unroll, save_interval=2,
+                            log_interval=2, eval_interval=2,
+                            holdout_frames=DRIVER_HOLDOUT)
+        metrics, n = run_driver(torch, main_base, lambda: main_base.train_base(
+            cfg, max_steps, device=dev), max_steps - start)
+        numbers.append(n)
+        evaluators.extend(n["evaluators"])
+        print(f"driver stage 1 (unroll {unroll}, to step {max_steps}): launches "
+              f"{n['launches']}, last metrics {metrics}")
+        check(all(v == 0 for v in n["launches"].values()),
+              f"kernels launched in the stage-1 driver: {n['launches']}")
+        check(all(math.isfinite(v) for v in metrics.values()), f"metrics {metrics}")
+        check(n["batches"] == (max_steps - start) // unroll,
+              f"{n['batches']} batches for {max_steps - start} steps at unroll {unroll}")
+    resumed = f"Resumed from checkpoint step {DRIVER_STEPS}"
+    check(resumed in numbers[1]["text"], f"the second call did not print '{resumed}'")
+    check(step_dirs(work / "base") == [2, 4, 6], f"checkpoints {step_dirs(work / 'base')}")
+    png = Path("output_images") / f"pred_frame_{DRIVER_RESUMED_STEPS}.png"
+    check(png.is_file() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n",
+          f"no debug PNG at {png}")
+    check(len(evaluators) == 2 and all(e.n_pairs == DRIVER_CLIPS * DRIVER_HOLDOUT
+                                       for e in evaluators), "held-out pairs")
+    best = evaluators[-1]
+    check(best.best_variables is not None, "the resumed run kept no snapshot")
+    exports = step_dirs(work / "base" / "export")
+    for i, n in enumerate(numbers):
+        report_driver(f"driver stage 1, call {i + 1}", n, bare_ms, smi)
+
+    gbase = driver_config(work, "base").make_gbase(device=dev, seed=99)
+    check(restore_gbase(gbase, [str(work / "base" / "export")]), "no stage-1 export")
+    same = same_weights(torch, gbase, best.best_variables)
+    print(f"driver stage 1: exports at steps {exports}; the latest restored into a fresh "
+          f"Gbase equals the evaluator's best snapshot (step {best.best_step}, "
+          f"{best.best_psnr:.3f} dB) bit for bit: {same}; {png} written")
+    check(same, "the stage-1 export differs from the best snapshot")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    session = ReenactmentSession(model=gbase, bn_mode="running")
+    reset_counts()
+    session.set_source(smooth_image(torch, gen, dev, TRAIN_SIZE))
+    outs = [session(smooth_image(torch, gen, dev, TRAIN_SIZE)) for _ in range(SERVE_FRAMES)]
+    served = counts()
+    print(f"driver stage 1: {SERVE_FRAMES} frames served from the export, launches {served}")
+    check_trunk_launches("serving the stage-1 export", served, SERVE_FRAMES,
+                         len(gbase.g2d.trunk_names))
+    for out in outs:
+        check(tuple(out.shape) == (1, TRAIN_SIZE, TRAIN_SIZE, 3)
+              and torch.isfinite(out).all().item(), "a served frame")
+    return dict(launches=served, best=best.best_variables)
+
+
+def phase_driver_hr(torch, dev, smi, work, bare_ms, gbase_export):
+    """Stage-2 driver: train_hr, FULL, base 512 with Genh at 1024, batch 2,
+    DRIVER_STEPS steps, evaluation every 2, the frozen Gbase restored from
+    the stage-1 export (its trunk on K2). K2 twice a step plus once a row of
+    every evaluated batch (padded rows included); the genh_variables export
+    restores into a fresh Genh bit for bit equal to the best snapshot."""
+    from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
+    from megaportraits_tpu_torch.models.genh import build_genh
+    from megaportraits_tpu_torch.train import main_hr
+
+    cfg = driver_config(work, "hr", save_interval=2, log_interval=2, eval_interval=2,
+                        holdout_frames=DRIVER_HOLDOUT, lr=HR_TRAIN["lr"])
+    frozen = []
+    build_step = main_hr.make_hr_train_step
+
+    def keeping_gbase(genh, gbase, *args, **kwargs):
+        frozen.append(gbase)
+        return build_step(genh, gbase, *args, **kwargs)
+
+    with Patched(main_hr, make_hr_train_step=keeping_gbase):
+        metrics, n = run_driver(torch, main_hr, lambda: main_hr.train_hr(
+            cfg, DRIVER_STEPS, gbase_ckpt=str(work / "base"), device=dev), DRIVER_STEPS)
+    (ev,) = n["evaluators"]
+    evals = DRIVER_STEPS // 2
+    rows = -(-ev.n_pairs // ev.batch_size) * ev.batch_size
+    k2_calls = HR_TRAIN["batch"] * DRIVER_STEPS + evals * rows
+    print(f"driver stage 2: launches {n['launches']}; K2 expected {k2_calls} = "
+          f"{HR_TRAIN['batch']} a step x {DRIVER_STEPS} + {evals} evaluations x {rows} rows "
+          f"({ev.n_pairs} pairs in batches of {ev.batch_size}); last metrics {metrics}")
+    check(all(math.isfinite(v) for v in metrics.values()), f"metrics {metrics}")
+    check_trunk_launches("driver stage 2", n["launches"], k2_calls,
+                         len(frozen[0].g2d.trunk_names))
+    check(same_weights(torch, frozen[0], gbase_export),
+          "the frozen Gbase is not the stage-1 export")
+    check(step_dirs(work / "hr") == [2, 4], f"checkpoints {step_dirs(work / 'hr')}")
+    genh = build_genh(cfg.make_arch(), device=dev, seed=98)
+    restored = CheckpointManager(str(work / "hr" / "export")).restore({"genh_variables": genh})
+    same = restored is not None and same_weights(torch, genh, ev.best_variables)
+    print(f"driver stage 2: the frozen Gbase is the stage-1 export bit for bit; exports "
+          f"at {step_dirs(work / 'hr' / 'export')}, restored into a fresh Genh equal to "
+          f"the best snapshot (step {ev.best_step}, {ev.best_psnr:.3f} dB) bit for bit: "
+          f"{same}")
+    check(same, "the stage-2 export differs from the best snapshot")
+    report_driver("driver stage 2", n, bare_ms, smi)
+    return dict(launches=n["launches"])
+
+
+def phase_driver_student(torch, dev, smi, work, bare_ms):
+    """Stage-3 driver: train_student, FULL, 512, batch 4, 4 avatars,
+    DRIVER_STEPS steps; the teacher restored from a {"ghr_variables"}
+    checkpoint written here from the stage-1 and stage-2 exports, its
+    trunk switched onto K2 by wrapping the driver's build_ghr. K2 4 times a
+    step; the teacher bit for bit as saved, before and after the steps."""
+    from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
+    from megaportraits_tpu_torch.infer.inference import restore_gbase
+    from megaportraits_tpu_torch.models.genh import build_ghr
+    from megaportraits_tpu_torch.train import main_student
+
+    ghr = build_ghr("full", device=dev, seed=2)
+    check(restore_gbase(ghr.gbase, [str(work / "base" / "export")]), "no stage-1 export")
+    check(CheckpointManager(str(work / "hr" / "export")).restore(
+        {"genh_variables": ghr.genh}) is not None, "no stage-2 export")
+    check(CheckpointManager(str(work / "teacher")).save(0, {"ghr_variables": ghr}),
+          "the teacher was not saved")
+    saved = {k: v.detach().cpu().clone() for k, v in ghr.state_dict().items()}
+    del ghr
+
+    teachers = []
+
+    def k2_teacher(*args, **kwargs):
+        teacher = build_ghr(*args, **kwargs)
+        teacher.gbase.g2d.use_chain_kernel = True
+        teachers.append(teacher)
+        return teacher
+
+    cfg = driver_config(work, "student", batch=STUDENT_TRAIN["batch"], save_interval=2,
+                        log_interval=2, lr=STUDENT_TRAIN["lr"],
+                        num_avatars=STUDENT_TRAIN["avatars"])
+    with Patched(main_student, build_ghr=k2_teacher):
+        metrics, n = run_driver(torch, main_student, lambda: main_student.train_student(
+            cfg, DRIVER_STEPS, teacher_ckpt=str(work / "teacher"), device=dev),
+            DRIVER_STEPS)
+    (teacher,) = teachers
+    k2_calls = STUDENT_TRAIN["batch"] * DRIVER_STEPS
+    same = same_weights(torch, teacher, saved)
+    print(f"driver stage 3: launches {n['launches']}, K2 expected {k2_calls}; the teacher "
+          f"is the saved ghr_variables bit for bit after the steps: {same}; last metrics "
+          f"{metrics}")
+    check(all(math.isfinite(v) for v in metrics.values()), f"metrics {metrics}")
+    check_trunk_launches("driver stage 3", n["launches"], k2_calls,
+                         len(teacher.gbase.g2d.trunk_names))
+    check(same, "the teacher differs from its checkpoint")
+    check(step_dirs(work / "student") == [2, 4], f"checkpoints {step_dirs(work / 'student')}")
+    report_driver("driver stage 3", n, bare_ms, smi)
+    return dict(launches=n["launches"])
+
+
+def phase_drivers(torch, dev, smi, bare):
+    """The three drivers in a temporary working directory (runs/,
+    output_images/ and the checkpoints land there), on clips written into
+    the npz cache at 512 and 1024. `bare` holds the bare steps' ms."""
+    import os
+    import shutil
+    import tempfile
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        (work / "clips").mkdir()
+        t0 = time.perf_counter()
+        write_clips(torch, dev, work / "clips", (TRAIN_SIZE, 2 * TRAIN_SIZE))
+        print(f"drivers: {DRIVER_CLIPS} clips of {DRIVER_FRAMES} frames written to the npz "
+              f"cache at {TRAIN_SIZE} and {2 * TRAIN_SIZE} in "
+              f"{time.perf_counter() - t0:.2f} s; {shutil.disk_usage(tmp).free / 2 ** 30:.1f} "
+              f"GiB free there")
+        os.chdir(tmp)
+        try:
+            base = phase_driver_base(torch, dev, smi, work, bare["base"])
+            torch.cuda.empty_cache()
+            hr = phase_driver_hr(torch, dev, smi, work, bare["hr"], base.pop("best"))
+            torch.cuda.empty_cache()
+            student = phase_driver_student(torch, dev, smi, work, bare["student"])
+        finally:
+            os.chdir(here)
+    return [base["launches"], hr["launches"], student["launches"]]
+
+
 def main():
     import torch
 
@@ -1208,13 +1622,17 @@ def main():
     torch.cuda.empty_cache()
     phase_student(torch, dev)
     torch.cuda.empty_cache()
-    paths.append(phase_train(torch, dev, smi)["launches"])
-    torch.cuda.empty_cache()
-    paths.append(phase_train_hr(torch, dev, smi)["launches"])
-    torch.cuda.empty_cache()
-    paths.append(phase_train_student(torch, dev, smi)["launches"])
+    bare = {}
+    for name, phase in (("base", phase_train), ("hr", phase_train_hr),
+                        ("student", phase_train_student)):
+        result = phase(torch, dev, smi)
+        paths.append(result["launches"])
+        bare[name] = result["ms"]
+        torch.cuda.empty_cache()
+    paths.extend(phase_drivers(torch, dev, smi, bare))
     # Launches over every driven path: stage 1, HR serving, serving after
-    # stage-1 training, the HR step, the Student step and its teacher.
+    # stage-1 training, the HR step, the Student step and its teacher, the
+    # three drivers (serving the stage-1 export included).
     launches = {k: sum(p.get(k, 0) for p in paths) for k in launches}
     print(f"launches over every driven path: {launches}")
 

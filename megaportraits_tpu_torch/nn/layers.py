@@ -344,4 +344,5 @@ class Embed(nn.Embedding):
             self.weight.normal_(generator=generator)
 
     def forward(self, index: torch.Tensor) -> torch.Tensor:
-        return super().forward(index).to(self.policy.compute_dtype)
+        """`index` of any integer dtype (the drivers' batches carry int32)."""
+        return super().forward(index.long()).to(self.policy.compute_dtype)

@@ -23,8 +23,11 @@ BatchNorm cannot be folded into the kernels' epilogues, so ``G2d.trunk``
 and ``ResBlock2D`` bypass K1 and K2 when ``train`` is set, as the JAX
 package bypasses its Pallas kernels (which have no backward there).
 
-Not ported: ``unroll`` (several steps in one device call) and
-``pool_index`` (a device-resident batch pool), which amortise TPU dispatch.
+``make_train_step`` keeps the JAX function's ``unroll`` (several steps on
+batches stacked on a leading axis, in one call) and ``pool_index`` (a batch
+pool kept on the device, indexed per step). JAX folds them into one jitted
+device program; here they are plain loops and an index, with JAX's
+signatures and results.
 """
 
 from __future__ import annotations
@@ -79,13 +82,24 @@ def init_states(cfg: Config, seed: int = 0, policy: Policy = DEFAULT_POLICY,
     return gbase, disc, ploss, g_state, d_state
 
 
-def make_train_step(ploss: PerceptualLoss, cfg: Config):
+def make_train_step(ploss: PerceptualLoss, cfg: Config, unroll: int = 1,
+                    pool_index: bool = False):
     """The stage-1 step ``(g_state, d_state, batch) -> (g_state, d_state,
     metrics, xhat)``. `batch` holds [B, H, W, 3] images in [0, 1] under
     'source', 'driving', 'source_next', 'source_star', 'driving_star', and
     'foreground_mask' [B, H, W, 1] / 'gaze_masks' [B, H, W, 2] when the
     config asks for them. The states are updated in place and returned;
-    the metrics are detached float32 scalars."""
+    the metrics are detached float32 scalars.
+
+    With ``unroll > 1`` the step takes batches stacked on a leading
+    [unroll] axis, takes one step on each in order, and returns the last
+    step's metrics and ``xhat=None`` (it steps once per entry of the
+    leading axis, as JAX's scan does). With ``pool_index=True`` it is
+    ``(g_state, d_state, pool, i)``: the step on batch `i` of `pool`, a
+    batch dict with a leading pool axis that stays on the device. The two
+    exclude each other (``ValueError``)."""
+    if pool_index and unroll > 1:
+        raise ValueError("pool_index and unroll>1 are mutually exclusive")
     t = cfg.training
     w = dict(per=t.w_per, adv=t.w_adv, fm=t.w_fm, cos=t.w_cos,
              pairwise=t.w_pairwise, identity=t.w_identity)
@@ -176,4 +190,20 @@ def make_train_step(ploss: PerceptualLoss, cfg: Config):
         d_state.apply_gradients(d_grads)
         return g_state, d_state, {k: v.detach() for k, v in metrics.items()}, xhat
 
-    return step
+    if pool_index:
+        def pool_step(g_state: TrainState, d_state: TrainState,
+                      pool: Dict[str, torch.Tensor], i):
+            return step(g_state, d_state, {k: v[i] for k, v in pool.items()})
+
+        return pool_step
+    if unroll <= 1:
+        return step
+
+    def multi_step(g_state: TrainState, d_state: TrainState,
+                   batches: Dict[str, torch.Tensor]):
+        for j in range(len(next(iter(batches.values())))):
+            g_state, d_state, metrics, _ = step(
+                g_state, d_state, {k: v[j] for k, v in batches.items()})
+        return g_state, d_state, metrics, None
+
+    return multi_step

@@ -257,3 +257,31 @@ def test_kernels_refuse_autograd_inputs_on_card(cuda, operand):
             fn(*args)
         torch.cuda.synchronize()
         assert fn.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_prefetch_to_the_card_matches_the_cpu_path(cuda):
+    """prefetch_to_device on the card: every leaf lands on the card, in
+    order, equal to the CPU path's; a leaf that cannot be copied raises in
+    the consumer."""
+    from megaportraits_tpu_torch.data.prefetch import prefetch_to_device
+
+    rng = np.random.default_rng(19)
+    items = [{"x": rng.random((2, 64, 64, 3), dtype=np.float32),
+              "i": np.arange(3, dtype=np.int32) + k} for k in range(6)]
+    on_card = list(prefetch_to_device(iter(items), size=2, device=cuda))
+    on_host = list(prefetch_to_device(iter(items), size=2, device="cpu"))
+    assert len(on_card) == len(on_host) == 6
+    for got, want in zip(on_card, on_host):
+        for k in want:
+            assert got[k].device.type == "cuda" and got[k].dtype == want[k].dtype
+            assert torch.equal(got[k].cpu(), want[k])
+
+    def broken():
+        yield items[0]
+        yield {"x": np.array([object()])}
+
+    it = prefetch_to_device(broken(), device=cuda)
+    assert next(it)["x"].device.type == "cuda"
+    with pytest.raises(TypeError):
+        next(it)

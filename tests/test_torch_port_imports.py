@@ -37,7 +37,16 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["jax_package"] == []
-    for name in ("megaportraits_tpu_torch.train.train_base",
+    for name in ("megaportraits_tpu_torch.__main__",
+                 "megaportraits_tpu_torch.data.dataset",
+                 "megaportraits_tpu_torch.data.prefetch",
+                 "megaportraits_tpu_torch.data.segmentation",
+                 "megaportraits_tpu_torch.eval.heldout",
+                 "megaportraits_tpu_torch.train.main_base",
+                 "megaportraits_tpu_torch.train.main_hr",
+                 "megaportraits_tpu_torch.train.main_student",
+                 "megaportraits_tpu_torch.utils.logging",
+                 "megaportraits_tpu_torch.train.train_base",
                  "megaportraits_tpu_torch.train.train_hr",
                  "megaportraits_tpu_torch.train.train_student",
                  "megaportraits_tpu_torch.core.checkpoint",

@@ -178,11 +178,14 @@ def test_reenact_video_matches_jax(case, max_frames):
     assert diff.mean() <= 1 and diff.max() <= 16, (diff.mean(), diff.max())
 
 
-def test_save_image_matches_jax(case):
+@pytest.mark.parametrize("shape", [(2, 16, 16, 3), (17, 30, 3)])
+def test_save_image_matches_jax(case, shape):
+    """The port writes its PNG with zlib (no PIL); PIL reads both."""
     from PIL import Image
 
-    arr = np.random.default_rng(5).uniform(-0.2, 1.2, (2, 16, 16, 3)).astype(np.float32)
+    arr = np.random.default_rng(5).uniform(-0.2, 1.2, shape).astype(np.float32)
     j_save_image(arr, str(case["dir"] / "img_jax.png"))
     save_image(torch.from_numpy(arr), str(case["dir"] / "img_port.png"))
+    assert Image.open(case["dir"] / "img_port.png").mode == "RGB"
     np.testing.assert_array_equal(np.asarray(Image.open(case["dir"] / "img_port.png")),
                                   np.asarray(Image.open(case["dir"] / "img_jax.png")))
