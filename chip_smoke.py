@@ -90,9 +90,26 @@ Phases, in order; any failure exits non-zero:
      the host clock after a synchronise), the set-up time, the time the
      driver waited on the prefetch per step, the bytes copied
      host-to-device per step and the peak memory;
-  14. one JSON line listing every kernel with its numbers, the launches
-     summed over the driven paths (phases 5, 7, 10, 11, 12 and 13);
-  15. last line: {"ok": true, "device": {...}}.
+  14. the pretrained bundle and eval (phase_bundle_eval): synthetic
+     original .pth files at their real sizes (2DFAN-4, InceptionResnetV1,
+     VGG16 with the LPIPS heads, VGG19, resnet18, 6DRepNet) made from
+     seeded port modules through the converter's tables, converted,
+     load_bundle checked; 8 frames of the stage-1 ReenactmentSession at
+     512 on K2 written as PNGs beside their driving frames; the eval
+     command in process with --pretrained (real LPIPS, identity-embedding
+     AED, the FAN provider, finite metrics, every PNG read back as
+     written); a scored pair's seconds split into PNG I/O, host metrics,
+     LPIPS, FAN and the identity net; FAN ms/image at 256 and
+     InceptionResnetV1 at 160; the graft report against the FULL leaf
+     counts; PerceptualLoss(use_vggface=True) forward + backward at 512,
+     batch 2, and its peak memory;
+  15. the stage-1 driver with use_gaze_loss (phase_driver_gaze): 512, batch
+     2, 2 steps, pretrained_path at the bundle: the FAN provider
+     installed, gaze_masks on every batch with their coverage, loss_G_gaze
+     finite, the masks' ms a batch, the prefetch wait, steps/s;
+  16. one JSON line listing every kernel with its numbers, the launches
+     summed over the driven paths (phases 5, 7, 10 to 15);
+  17. last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 5 samples after 2 warm-ups (a training
 step: of 3 after 1); the kernels, their plain versions and the library
@@ -102,8 +119,10 @@ The plain versions are the float32 references (TF32 off for both cuDNN and
 matmul). The library yardsticks run cuDNN with cudnn.benchmark on.
 """
 
+import ast
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -131,6 +150,12 @@ SERVE_FRAMES = 2
 # the trunk's: each bf16 trunk against a float32 trunk on the same input.
 FRAME_MAX_ABS = 0.15
 FRAME_MEAN_ABS = 0.02
+# Parameters a bundle of every grafted backbone writes into a FULL Gbase
+# and a FULL PerceptualLoss(use_vggface=True) (JAX's leaf counts; fixed by
+# tests/test_torch_port_pretrained.py).
+FULL_GBASE_LEAVES = 178
+FULL_PLOSS_LEAVES = 665
+VGGFACE_LEAVES = 602  # of FULL_PLOSS_LEAVES, InceptionResnetV1's
 
 
 def die(msg):
@@ -1581,6 +1606,319 @@ def phase_drivers(torch, dev, smi, bare):
     return [base["launches"], hr["launches"], student["launches"]]
 
 
+# phase_bundle_eval: a synthetic pretrained bundle at the real sizes, the
+# eval command on frames served through K2, and the identity term.
+EVAL_FRAMES = 8
+FAN_STACKS = 4  # 2DFAN-4
+IDENTITY_SIZE = 512  # PerceptualLoss(use_vggface=True) timed at 512, batch 2
+IDENTITY_BATCH = 2
+
+
+def write_synthetic_weights(torch, dev, directory, fan_stacks=FAN_STACKS):
+    """Original-named .pth files made from seeded port modules through the
+    converter's tables: 2DFAN-N, InceptionResnetV1, VGG16 features with the
+    LPIPS heads, VGG19 features, resnet18 and 6DRepNet, at their real sizes.
+    Returns {file name: the kind identify() must give}."""
+    from megaportraits_tpu_torch.core.dtypes import FP32_POLICY
+    from megaportraits_tpu_torch.losses.perceptual import LPIPS, VGG
+    from megaportraits_tpu_torch.losses.vggface import InceptionResnetV1
+    from megaportraits_tpu_torch.models.fan import FAN
+    from megaportraits_tpu_torch.models.repvgg import SixDRepNet
+    from megaportraits_tpu_torch.models.resnet import ResNet18
+    from megaportraits_tpu_torch.nn.layers import init_parameters
+    from megaportraits_tpu_torch.utils import convert_weights as cw
+
+    kw = dict(policy=FP32_POLICY, device=dev)
+    files = {
+        "2DFAN4.pth": ("fan", cw.fan_table(fan_stacks), lambda: FAN(fan_stacks, **kw)),
+        "vggface2.pth": ("vggface", cw.inception_table(), lambda: InceptionResnetV1(**kw)),
+        "vgg16.pth": ("vgg16", cw.vgg_table("vgg16"), lambda: VGG("vgg16", ((4, 2),), **kw)),
+        "lpips_vgg.pth": ("lpips", cw.lpips_table(), lambda: LPIPS(**kw)),
+        "vgg19.pth": ("vgg19", cw.vgg_table("vgg19"), lambda: VGG("vgg19", ((4, 3),), **kw)),
+        "resnet18.pth": ("resnet18", cw.resnet_table("resnet18"),
+                         lambda: ResNet18(num_classes=1000, **kw)),
+        "6DRepNet_300W_LP_AFLW2000.pth": ("sixdrepnet", cw.sixdrepnet_table(),
+                                          lambda: SixDRepNet(**kw)),
+    }
+    for i, (name, (_, table, make)) in enumerate(files.items()):
+        module = init_parameters(make(), seed=20 + i)
+        torch.save(cw.original_state_dict(table, module.state_dict()), directory / name)
+        del module
+    return {name: kind for name, (kind, _, _) in files.items()}
+
+
+def phase_bundle_eval(torch, dev, smi, work, arch="full", size=TRAIN_SIZE,
+                      frames=EVAL_FRAMES, fan_stacks=FAN_STACKS,
+                      identity_size=IDENTITY_SIZE, policy=None):
+    """The pretrained bundle and the eval command, at `arch` (FULL on the
+    card): synthetic original files -> the converter -> load_bundle; the
+    stage-1 ReenactmentSession at `size` serves `frames` frames with its
+    trunk on K2, written as pred_frame_{i}.png beside the driving frames as
+    targets; `eval --pretrained` in-process (real LPIPS, identity-embedding
+    AED, the FAN provider, finite metrics, every PNG read back as written);
+    the time of a scored pair split into its parts, FAN and
+    InceptionResnetV1 per image; then the bundle grafted into a Gbase and
+    a PerceptualLoss(use_vggface=True), whose forward and backward are
+    timed at `identity_size`, batch 2. Returns the bundle's path and the
+    launches of the serving."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from megaportraits_tpu_torch import __main__ as cli
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
+    from megaportraits_tpu_torch.data import landmarks
+    from megaportraits_tpu_torch.eval import metrics
+    from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
+    from megaportraits_tpu_torch.losses.perceptual import build_perceptual_loss
+    from megaportraits_tpu_torch.models.gbase import build_gbase, calibrate_batch_norm
+    from megaportraits_tpu_torch.utils import convert_weights as cw
+    from megaportraits_tpu_torch.utils.image import save_image
+    from megaportraits_tpu_torch.utils.pretrained import load_bundle, maybe_load_pretrained
+
+    weights, bundle, out_dir, tgt_dir = (work / d for d in ("weights", "bundle", "out", "tgt"))
+    for d in (weights, out_dir, tgt_dir):
+        d.mkdir()
+    t0 = time.perf_counter()
+    kinds = write_synthetic_weights(torch, dev, weights, fan_stacks)
+    t1 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = cw.main(["--weights-dir", str(weights), "--out", str(bundle)])
+    t2 = time.perf_counter()
+    print(text.getvalue().rstrip())
+    check(rc == 0, f"the converter returned {rc}")
+    check("SKIP" not in text.getvalue(), "the converter skipped a file")
+    for name, kind in kinds.items():
+        key = cw.bundle_key(kind)
+        check(f"{name:30s} -> {key:12s} converted" in text.getvalue(),
+              f"{name} was not converted as {key}")
+    loaded = load_bundle(str(bundle))
+    want_keys = {"fan", "vggface", "vgg16", "lpips_heads", "vgg19", "resnet18", "sixdrepnet"}
+    check(loaded is not None and set(loaded) == want_keys, f"bundle keys {sorted(loaded or {})}")
+    n_bytes = sum(f.stat().st_size for f in weights.iterdir())
+    print(f"bundle: {len(kinds)} original files ({n_bytes / 2 ** 20:.1f} MiB) written in "
+          f"{t1 - t0:.2f} s, converted in {t2 - t1:.2f} s; load_bundle gives "
+          f"{sorted(loaded)}, FAN with {fan_stacks} stacks")
+    face_weights = loaded["vggface"]
+    del loaded
+
+    # Serve the frames that eval scores, the trunk on K2.
+    policy = policy or DEFAULT_POLICY
+    model = build_gbase(arch, policy=policy, device=dev, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    xs = smooth_image(torch, gen, dev, size)
+    drives = [smooth_image(torch, gen, dev, size) for _ in range(frames)]
+    calibrate_batch_norm(model, xs, drives[0])
+    model.g2d.use_chain_kernel = True
+    session = ReenactmentSession(model=model, bn_mode="running")
+    reset_counts()
+    session.set_source(xs)
+    preds = [session(xd) for xd in drives]
+    torch.cuda.synchronize()
+    served = counts()
+    print(f"eval serving: {frames} frames at {size}x{size}, launches {served}")
+    check(served["resblock_chain"] == frames,
+          f"K2 ran {served['resblock_chain']} times serving {frames} frames")
+    written = {}
+    for i, (pred, xd) in enumerate(zip(preds, drives)):
+        name = f"pred_frame_{i}.png"
+        for d, img in ((out_dir, pred), (tgt_dir, xd)):
+            arr = img[0].float().cpu().numpy()
+            save_image(arr, str(d / name))
+            written[str(d / name)] = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+    del session, preds
+
+    # Score: the eval command, in process.
+    landmarks.set_landmark_provider(None)
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(["eval", "--output-dir", str(out_dir), "--target-dir", str(tgt_dir),
+                       "--pretrained", str(bundle), "--device", str(dev)])
+    eval_s = time.perf_counter() - t0
+    lines = text.getvalue().strip().splitlines()
+    print("\n".join(f"  eval | {line}" for line in lines))
+    check(rc == 0, f"eval returned {rc}")
+    check(lines[:2] == ["eval: converted LPIPS active",
+                        "eval: vggface identity embeddings active (AED)"],
+          f"eval did not report real LPIPS and identity AED: {lines[:2]}")
+    result = ast.literal_eval(lines[-1])
+    check(result["AED_formula"] == "identity_embedding", f"AED_formula {result['AED_formula']}")
+    check(result["AKD_provider"] == "FANLandmarkProvider",
+          f"AKD_provider {result['AKD_provider']}")
+    for k in ("L1", "LPIPS", "PSNR", "SSIM", "AKD", "AED"):
+        check(result[k] is not None and math.isfinite(result[k]), f"eval {k} = {result[k]}")
+    for path, arr in written.items():
+        check(np.array_equal(metrics.load_image(path), arr.astype(np.float32) / 255.0),
+              f"{path} does not read back as written")
+    print(f"eval: {frames} pairs scored in {eval_s:.3f} s (host clock, the callables' "
+          f"set-up included) = {eval_s / frames:.3f} s a pair; every PNG read back as "
+          f"written ({len(written)} files)")
+
+    # Where a scored pair's time goes (host clock, each part after a
+    # synchronise; the device parts return host arrays, which waits for them).
+    provider = landmarks.get_landmark_provider()
+    lpips_apply, embedding_apply = metrics.make_eval_callables(str(bundle), dev)
+    landmarks.set_landmark_provider(provider)
+    parts = {k: [] for k in ("png", "host", "lpips", "fan", "identity")}
+    for i in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = metrics.load_image(str(out_dir / f"pred_frame_{i}.png"))
+        tgt = metrics.load_image(str(tgt_dir / f"pred_frame_{i}.png"))
+        t1 = time.perf_counter()
+        for fn in (metrics.calculate_l1, metrics.calculate_psnr, metrics.calculate_ssim):
+            fn(pred, tgt)
+        t2 = time.perf_counter()
+        metrics.calculate_lpips(pred, tgt, lpips_apply)
+        t3 = time.perf_counter()
+        metrics.calculate_akd(pred, tgt)
+        t4 = time.perf_counter()
+        metrics.calculate_aed(pred, tgt, embedding_apply)
+        t5 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            parts[k].append(v)
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    print(f"eval, one scored pair at {size}x{size} (host-clock medians of {frames}): "
+          f"{sum(med.values()):.4f} s = PNG I/O {med['png']:.4f} + host metrics (L1, PSNR, "
+          f"SSIM) {med['host']:.4f} + LPIPS {med['lpips']:.4f} + FAN, two images "
+          f"{med['fan']:.4f} + identity net, two images {med['identity']:.4f} | {smi}")
+
+    fan_in = torch.rand(1, 256, 256, 3, device=dev, generator=gen)
+    face_in = torch.rand(1, 160, 160, 3, device=dev, generator=gen) * 2 - 1
+    from megaportraits_tpu_torch.losses.vggface import InceptionResnetV1
+
+    face = InceptionResnetV1(policy=FP32_POLICY, device=dev)
+    face.load_state_dict(face_weights)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad():
+        fan_ms = time_ms(lambda: provider.model(fan_in), reps=1)
+        face_ms = time_ms(lambda: face(face_in), reps=1)
+        gflop = {}
+        for name, fn in (("fan", lambda: provider.model(fan_in)), ("face", lambda: face(face_in))):
+            with FlopCounterMode(display=False) as counter:
+                fn()
+            gflop[name] = counter.get_total_flops() / 1e9
+    print(f"FAN ({fan_stacks} stacks, float32) {fan_ms:.3f} ms/image at 256x256, "
+          f"{gflop['fan']:.3f} GFLOP = {gflop['fan'] / fan_ms:.3f} TFLOP/s; InceptionResnetV1 "
+          f"(float32) {face_ms:.3f} ms/image at 160x160, {gflop['face']:.3f} GFLOP = "
+          f"{gflop['face'] / face_ms:.3f} TFLOP/s (CUDA-event medians of 5 after 2 warm-ups; "
+          f"FLOPs by torch.utils.flop_counter) | {smi}")
+    del face, lpips_apply, embedding_apply
+
+    # The graft, and the identity term's cost in the perceptual loss.
+    ploss = build_perceptual_loss(arch, policy=policy, device=dev, seed=3,
+                                  use_vggface=True)
+    _, _, report = maybe_load_pretrained(str(bundle), model, ploss)
+    want = (f"pretrained: gbase leaves={FULL_GBASE_LEAVES}, "
+            f"ploss leaves={FULL_PLOSS_LEAVES}")
+    print(f"graft: {report} (want {want!r} at FULL)")
+    check(arch != "full" or report == want, f"graft report {report!r}, want {want!r}")
+    del model
+    plain = build_perceptual_loss(arch, policy=policy, device=dev, seed=3)
+    maybe_load_pretrained(str(bundle), None, plain)
+    pred = torch.rand(IDENTITY_BATCH, identity_size, identity_size, 3, device=dev,
+                      generator=gen).requires_grad_(True)
+    tgt = torch.rand(IDENTITY_BATCH, identity_size, identity_size, 3, device=dev,
+                     generator=gen)
+    timing = {}
+    for name, loss_net in (("with vggface", ploss), ("without", plain)):
+        def fwd_bwd():
+            pred.grad = None
+            loss_net(pred, tgt).backward()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(fwd_bwd, reps=1)
+        peak = torch.cuda.max_memory_allocated()
+        with FlopCounterMode(display=False) as counter:
+            fwd_bwd()
+        timing[name] = (ms, peak, counter.get_total_flops() / 1e12)
+        check(pred.grad is not None and torch.isfinite(pred.grad).all().item(),
+              f"PerceptualLoss ({name}) gradient")
+    (ms_v, peak_v, tf_v), (ms_p, _, tf_p) = timing["with vggface"], timing["without"]
+    print(f"PerceptualLoss forward + backward at {identity_size}x{identity_size}, batch "
+          f"{IDENTITY_BATCH}, {policy.compute_dtype} compute: {ms_v:.3f} ms with the vggface "
+          f"term ({tf_v:.3f} TFLOP), {ms_p:.3f} ms without ({tf_p:.3f} TFLOP; the identity "
+          f"term {ms_v - ms_p:.3f} ms for {tf_v - tf_p:.3f} TFLOP); peak memory "
+          f"{peak_v / 2 ** 30:.2f} GiB with it (CUDA-event medians of 5) | {smi}")
+    return dict(bundle=bundle, launches=served)
+
+
+def phase_driver_gaze(torch, dev, smi, work, bundle, bare_ms, size=TRAIN_SIZE, steps=2):
+    """The stage-1 driver with use_gaze_loss at `size`, batch 2, `steps`
+    steps, pretrained_path at the bundle: the FAN provider installed from
+    it, every batch with gaze_masks [2, size, size, 2] (their coverage
+    printed), loss_G_gaze finite in every step, the masks' ms a batch (host
+    clock, in the prefetch's producer), the consumer's prefetch wait, and
+    steps/s beside phase_train's bare step."""
+    from megaportraits_tpu_torch.data import landmarks
+    from megaportraits_tpu_torch.train import main_base
+
+    clips = work / "clips"
+    clips.mkdir()
+    write_clips(torch, dev, clips, (size,))
+    cfg = driver_config(work, "gaze", use_gaze_loss=True, pretrained_path=str(bundle),
+                        log_interval=1, save_interval=steps)
+    cfg.data.train_width = cfg.data.train_height = size
+    mask_ms, seen = [], []
+    make_masks, build_step = main_base.gaze_masks_for_batch, main_base.make_train_step
+
+    def timed_masks(images):
+        t0 = time.perf_counter()
+        out = make_masks(images)
+        mask_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def recording_step(*args, **kwargs):
+        step = build_step(*args, **kwargs)
+
+        def run(g, d, batch):
+            m = batch.get("gaze_masks")
+            g, d, metrics, xhat = step(g, d, batch)
+            seen.append((None if m is None else (tuple(m.shape), m.float().mean().item()),
+                         metrics["loss_G_gaze"].item()))
+            return g, d, metrics, xhat
+        return run
+
+    landmarks.set_landmark_provider(None)
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        with Patched(main_base, gaze_masks_for_batch=timed_masks,
+                     make_train_step=recording_step):
+            metrics, n = run_driver(torch, main_base, lambda: main_base.train_base(
+                cfg, steps, device=dev), steps)
+    finally:
+        os.chdir(here)
+    provider = landmarks.get_landmark_provider()
+    pretrained_line = [ln for ln in n["text"].splitlines() if ln.startswith("pretrained:")]
+    print(f"driver gaze: {pretrained_line}; provider {type(provider).__name__} on "
+          f"{getattr(provider, 'device', None)}, trained {getattr(provider, 'trained', None)}; "
+          f"launches {n['launches']}; per step (mask shape, mask mean, loss_G_gaze) {seen}; "
+          f"masks {[round(x, 3) for x in mask_ms]} ms a batch (host clock, in the prefetch "
+          f"producer, FAN on its own stream)")
+    check(isinstance(provider, landmarks.FANLandmarkProvider) and provider.trained,
+          "the FAN provider of the bundle is not installed")
+    check(len(seen) == steps, f"{len(seen)} steps seen")
+    for shape_mean, gaze in seen:
+        check(shape_mean is not None and shape_mean[0] == (TRAIN_BATCH, size, size, 2),
+              f"gaze_masks {shape_mean}")
+        check(math.isfinite(gaze), f"loss_G_gaze {gaze}")
+    check(all(v == 0 for v in n["launches"].values()), f"kernels in training: {n['launches']}")
+    check("gaze term skipped" not in n["text"], "the driver skipped the gaze term")
+    check(cfg.model.arch != "full" or pretrained_line == [
+        f"pretrained: gbase leaves={FULL_GBASE_LEAVES}, "
+        f"ploss leaves={FULL_PLOSS_LEAVES - VGGFACE_LEAVES}"],
+        f"the driver grafted {pretrained_line}")
+    report_driver("driver stage 1 with use_gaze_loss", n, bare_ms, smi)
+    return dict(launches=n["launches"])
+
+
 def main():
     import torch
 
@@ -1630,9 +1968,20 @@ def main():
         bare[name] = result["ms"]
         torch.cuda.empty_cache()
     paths.extend(phase_drivers(torch, dev, smi, bare))
+    torch.cuda.empty_cache()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        result = phase_bundle_eval(torch, dev, smi, work)
+        paths.append(result["launches"])
+        torch.cuda.empty_cache()
+        paths.append(phase_driver_gaze(torch, dev, smi, work, result["bundle"],
+                                       bare["base"])["launches"])
     # Launches over every driven path: stage 1, HR serving, serving after
     # stage-1 training, the HR step, the Student step and its teacher, the
-    # three drivers (serving the stage-1 export included).
+    # three drivers (serving the stage-1 export included), the frames that
+    # eval scores and the stage-1 driver with the gaze term.
     launches = {k: sum(p.get(k, 0) for p in paths) for k in launches}
     print(f"launches over every driven path: {launches}")
 

@@ -18,7 +18,7 @@ hand the memory back to the side stream while the step still reads it.
 The JAX function's contract holds: batches come in order, an exception of
 the producer is raised in the consumer, and the iteration ends when
 `iterator` does. ``device="cpu"`` yields plain CPU tensors (for the tests).
-Closing the generator (or dropping it) stops the producer.
+Closing the generator (or dropping it) stops the producer and waits for it.
 """
 
 from __future__ import annotations
@@ -111,4 +111,8 @@ def prefetch_to_device(iterator: Iterator[Any], size: int = 2,
                 map_leaves(lambda t: t.record_stream(current), batch)
             yield batch
     finally:
+        # Wait for the producer to finish the batch it is making: a thread
+        # left inside a torch op (a landmark forward, say) when the process
+        # exits can abort it.
         stop.set()
+        thread.join()

@@ -11,8 +11,9 @@ Reference quirks kept:
     feed both the VGG19 tap loss and LPIPS, which applies its own shift and
     scale on top of them;
   * the gaze slot adds the constant ``weights['gaze']``.
-The InceptionResnetV1 'vggface' term (``use_vggface`` in JAX, off by
-default there) is not ported.
+The 'vggface' term (``use_vggface``, off by default as in JAX) adds
+``weights['vggface']`` x the L1 of InceptionResnetV1's four taps
+(losses/vggface.py) on the same normalised tensors.
 """
 
 from __future__ import annotations
@@ -140,22 +141,30 @@ class LPIPS(nn.Module):
 
 class PerceptualLoss(nn.Module):
     """The reference's PerceptualLoss: ``weights['vgg19']`` x the L1 of the
-    VGG19 taps + ``weights['lpips']`` x mean LPIPS + ``weights['gaze']``,
-    plus the feature-matching L1 of the same taps when ``forward`` is asked
-    for it. The VGG19 trunk is built when its weight is set or when
-    `use_fm_loss` asks for the feature-matching term (JAX builds it from
-    the call, ``w['vgg19'] or use_fm_loss``; torch must know at
-    construction); LPIPS when its weight is set."""
+    VGG19 taps + ``weights['vggface']`` x the L1 of InceptionResnetV1's taps
+    (with `use_vggface`) + ``weights['lpips']`` x mean LPIPS +
+    ``weights['gaze']``, plus the feature-matching L1 of the VGG19 taps when
+    ``forward`` is asked for it. The VGG19 trunk is built when its weight is
+    set or when `use_fm_loss` asks for the feature-matching term (JAX builds
+    it from the call, ``w['vgg19'] or use_fm_loss``; torch must know at
+    construction); LPIPS when its weight is set; the identity net
+    (``vggface``, full width whatever the arch, as in JAX) when
+    `use_vggface` and its weight are set."""
 
     def __init__(self, weights: Optional[Dict[str, float]] = None,
                  policy: Policy = DEFAULT_POLICY, arch: Arch = FULL, device=None,
-                 use_fm_loss: bool = False):
+                 use_fm_loss: bool = False, use_vggface: bool = False):
         super().__init__()
         self.weights = dict(weights or DEFAULT_WEIGHTS)
         self.policy = policy
         self.vgg19 = (VGG("vgg19", VGG19_REFERENCE_TAPS, policy=policy, arch=arch,
                           device=device)
                       if self.weights.get("vgg19", 0.0) or use_fm_loss else None)
+        self.vggface = None
+        if use_vggface and self.weights.get("vggface", 0.0):
+            from megaportraits_tpu_torch.losses.vggface import InceptionResnetV1
+
+            self.vggface = InceptionResnetV1(policy=policy, device=device)
         self.lpips = (LPIPS(policy=policy, arch=arch, device=device)
                       if self.weights.get("lpips", 0.0) else None)
         _constant_buffer(self, "mean", IMAGENET_MEAN, device)
@@ -183,6 +192,12 @@ class PerceptualLoss(nn.Module):
                 total = total + sum(
                     torch.mean(torch.abs(a.float() - b.float().detach()))
                     for a, b in zip(fp, ft))
+        if self.vggface is not None:
+            _, fa = self.vggface(p.cast_to_compute(pred_n), return_taps=True)
+            _, fb = self.vggface(p.cast_to_compute(tgt_n), return_taps=True)
+            face_loss = sum(torch.mean(torch.abs(a.float() - b.float()))
+                            for a, b in zip(fa, fb))
+            total = total + w["vggface"] * face_loss
         if self.lpips is not None:
             total = total + w["lpips"] * torch.mean(self.lpips(pred_n, tgt_n))
         # The reference's gaze slot: a constant.
@@ -193,11 +208,12 @@ def build_perceptual_loss(arch: Union[str, Arch] = "full",
                           policy: Policy = DEFAULT_POLICY,
                           device: Union[str, torch.device] = DEFAULT_DEVICE,
                           seed: int = 0,
-                          weights: Optional[Dict[str, float]] = None) -> PerceptualLoss:
+                          weights: Optional[Dict[str, float]] = None,
+                          use_vggface: bool = False) -> PerceptualLoss:
     """A frozen PerceptualLoss with seeded random weights on `device` (the
     card by default; raises if there is none and the caller did not ask
     for the CPU)."""
     model = PerceptualLoss(weights, policy=policy, arch=get_arch(arch),
-                           device=resolve_device(device))
+                           device=resolve_device(device), use_vggface=use_vggface)
     init_parameters(model, seed)
     return model.requires_grad_(False).eval()

@@ -41,16 +41,19 @@ def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
         t.uniform_(-bound, bound, generator=generator)
 
 
-def init_parameters(module: nn.Module, seed: int = 0) -> nn.Module:
-    """Draw every parameter of `module` from one seeded generator.
+def init_parameters(module: nn.Module, seed: int = 0,
+                    generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Draw every parameter of `module` from one seeded generator (or from
+    `generator`, on the module's device, when given).
 
     Layers with a ``reset_parameters(generator)`` method are visited in
     ``module.modules()`` order, so the same seed gives the same weights on
     the same device.
     """
-    dev = next(module.parameters()).device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=next(module.parameters()).device)
+        gen.manual_seed(seed)
     for m in module.modules():
         fn = getattr(m, "reset_parameters", None)
         if fn is not None:
@@ -149,21 +152,23 @@ class WSConv(nn.Module):
 class TorchDense(nn.Module):
     """Linear with torch default init and the policy dtypes."""
 
-    def __init__(self, in_features: int, features: int,
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  policy: Policy = DEFAULT_POLICY, device=None):
         super().__init__()
         self.policy = policy
         self.fan_in = in_features
         self.weight = nn.Parameter(torch.empty(
             features, in_features, dtype=policy.param_dtype, device=device))
-        self.bias = nn.Parameter(torch.empty(features, dtype=policy.param_dtype,
-                                             device=device))
+        self.bias = (nn.Parameter(torch.empty(features, dtype=policy.param_dtype,
+                                              device=device))
+                     if use_bias else None)
 
     reset_parameters = TorchConv.reset_parameters
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.policy.compute_dtype
-        return F.linear(x.to(cdt), self.weight.to(cdt), self.bias.to(cdt))
+        bias = None if self.bias is None else self.bias.to(cdt)
+        return F.linear(x.to(cdt), self.weight.to(cdt), bias)
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +314,33 @@ class BatchNorm(nn.Module):
         scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         shift = self.bias.float() + (conv_bias.float() - self.running_mean.float()) * scale
         return scale, shift
+
+
+class FrozenBN(nn.Module):
+    """Inference-mode BatchNorm over the last axis whose statistics are
+    parameters, as the JAX package holds them for its frozen networks (FAN,
+    InceptionResnetV1): ``(x - running_mean) * rsqrt(running_var + eps) *
+    weight + bias`` in float32, the result in x's dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 policy: Policy = DEFAULT_POLICY, device=None):
+        super().__init__()
+        self.eps = eps
+        for name in ("weight", "bias", "running_mean", "running_var"):
+            self.register_parameter(name, nn.Parameter(torch.empty(
+                channels, dtype=policy.param_dtype, device=device)))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
 
 
 def calibrate_batch_norm_with(model: nn.Module, forward: Callable[[], object]) -> int:

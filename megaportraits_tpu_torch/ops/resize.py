@@ -91,6 +91,12 @@ def gaussian_kernel_2d(scale: float) -> Tuple[np.ndarray, int, int]:
     return kernel.astype(np.float32), ka, kb
 
 
+def image_pyramid(x: torch.Tensor, scales: Sequence[float] = (0.5, 0.25)):
+    """Anti-aliased image pyramid of NHWC images: {str(scale): the
+    band-limited downsample} (the reference's ImagePyramide)."""
+    return {str(s): anti_alias_downsample(x, s) for s in scales}
+
+
 def anti_alias_downsample(x: torch.Tensor, scale: float) -> torch.Tensor:
     """Band-limited downsample of NHWC images: zero-pad, depthwise gaussian
     blur in float32, then nearest resize by `scale`."""

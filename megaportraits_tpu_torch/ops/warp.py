@@ -1,4 +1,5 @@
-"""3D flow-field application (counterpart of ``megaportraits_tpu/ops/warp.py``).
+"""3D flow-field application and the 2D grid sample (counterpart of
+``megaportraits_tpu/ops/warp.py``).
 
 Trilinear-resize the flow to the volume dims (``align_corners=True``), add
 it to an identity grid in (x, y, z) order, renormalize, then sample the
@@ -41,6 +42,22 @@ def grid_sample_3d(v: torch.Tensor, coords: torch.Tensor,
     [-1,1]) with border padding; float32 math, result in v's dtype."""
     out = F.grid_sample(to_channels_first(v.float()), coords.float(),
                         mode="bilinear", padding_mode="border",
+                        align_corners=align_corners)
+    return to_channels_last(out).to(v.dtype)
+
+
+def grid_sample_2d(v: torch.Tensor, coords: torch.Tensor,
+                   align_corners: bool = False,
+                   padding_mode: str = "border") -> torch.Tensor:
+    """Bilinear sample of v [B,H,W,C] at coords [B,Ho,Wo,2] ((x, y) in
+    [-1, 1]), torch's conventions: `padding_mode` 'border', 'reflection'
+    or 'zeros'. Float32 math, result in v's dtype. (With 'reflection' and
+    ``align_corners=True`` JAX's version reflects about the
+    ``align_corners=False`` bounds; this one follows torch.)"""
+    if padding_mode not in ("border", "reflection", "zeros"):
+        raise ValueError(f"unknown padding_mode: {padding_mode}")
+    out = F.grid_sample(to_channels_first(v.float()), coords.float(),
+                        mode="bilinear", padding_mode=padding_mode,
                         align_corners=align_corners)
     return to_channels_last(out).to(v.dtype)
 

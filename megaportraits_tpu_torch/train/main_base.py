@@ -10,12 +10,22 @@ TensorBoard metrics and console lines, PNG debug dumps, checkpoints
 export ``{"g_variables"}`` under ``<checkpoint_path>/export`` (the best
 held-out snapshot when ``eval_interval`` is set).
 
+With ``use_gaze_loss`` each batch gets eye masks ``gaze_masks`` [B, H, W, 2]
+from its driving frames (``losses/gaze.gaze_masks_for_batch``), made on the
+host before batches are grouped and prefetched, so in the prefetch's
+producer thread. The landmarks come from the installed provider: the FAN
+provider of the pretrained bundle when ``pretrained_path`` holds FAN
+weights (installed here, as ``eval`` does). FAN runs on the card on a CUDA
+stream of the provider's own, not on the training step's stream, so the
+producer's forwards overlap the step. Without a 68-point provider the term
+is skipped (one console line); once masks have been seen, a batch without
+them gets zero masks, so that the step's batch keeps its keys.
+
 Runs on one card (or on the CPU when asked). A ``mesh_shape`` of more than
 one device raises ``NotImplementedError``: data parallelism waits for
-``parallel/`` (ROADMAP Queue A item 5). ``use_gaze_loss`` raises too: the
-eye-mask rasteriser ``gaze_masks_for_batch`` and its landmark stack wait for
-Queue A item 4. Not ported: JAX's ``check_per_chip_batch`` and
-``apply_platform_env``, TPU housekeeping with no counterpart on a card.
+``parallel/`` (ROADMAP Queue A item 5). Not ported: JAX's
+``check_per_chip_batch`` and ``apply_platform_env``, TPU housekeeping with
+no counterpart on a card.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from __future__ import annotations
 import argparse
 import math
 import time
-from typing import Optional, Union
+from typing import Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -33,8 +43,10 @@ from megaportraits_tpu_torch.core.config import Config, load_config
 from megaportraits_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
 from megaportraits_tpu_torch.data.dataset import EMODataset
+from megaportraits_tpu_torch.data.landmarks import provider_from_bundle
 from megaportraits_tpu_torch.data.prefetch import prefetch_to_device
 from megaportraits_tpu_torch.eval.heldout import HeldoutEvaluator
+from megaportraits_tpu_torch.losses.gaze import gaze_masks_for_batch
 from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
 from megaportraits_tpu_torch.utils.image import save_image
 from megaportraits_tpu_torch.utils.logging import MetricsWriter
@@ -72,16 +84,31 @@ def set_steps_per_epoch(cfg: Config, dataset: EMODataset) -> int:
     return t.steps_per_epoch
 
 
+def with_gaze_masks(batches: Iterator[dict]) -> Iterator[dict]:
+    """`batches` with 'gaze_masks' rasterised from each batch's driving
+    frames by the installed landmark provider (JAX's ``with_gaze``)."""
+    warned = had_masks = False
+    for b in batches:
+        masks = gaze_masks_for_batch(b["driving"])
+        if masks is None:
+            if had_masks:
+                b["gaze_masks"] = np.zeros((*b["driving"].shape[:3], 2), np.float32)
+            elif not warned:
+                print("use_gaze_loss: no 68-point landmark provider (converted FAN "
+                      "weights absent) — gaze term skipped")
+                warned = True
+        else:
+            had_masks = True
+            b["gaze_masks"] = masks
+        yield b
+
+
 def train_base(cfg: Config, max_steps: Optional[int] = None,
                device: Union[str, torch.device] = DEFAULT_DEVICE) -> dict:
     """Train stage 1 for `max_steps` steps (``base_epochs`` epochs by
     default) on `device` (the card by default; raises if there is none and
     the caller did not ask for the CPU). Returns the last metrics."""
     check_single_device(cfg)
-    if cfg.training.use_gaze_loss:
-        raise NotImplementedError(
-            "use_gaze_loss needs gaze_masks_for_batch and the 68-point landmark "
-            "stack, not ported yet (ROADMAP Queue A item 4)")
     dev = resolve_device(device)
     policy = DEFAULT_POLICY if cfg.training.use_bf16 else FP32_POLICY
 
@@ -117,6 +144,11 @@ def train_base(cfg: Config, max_steps: Optional[int] = None,
             gbase, clips, holdout, cfg.training.batch_size)
         print(f"held-out early stopping: {evaluator.n_pairs} eval pairs, "
               f"every {cfg.training.eval_interval} steps")
+
+    if cfg.training.use_gaze_loss:
+        if cfg.training.pretrained_path:
+            provider_from_bundle(cfg.training.pretrained_path, device=dev)
+        raw_batches = with_gaze_masks(raw_batches)
 
     def grouped():
         if unroll == 1:

@@ -55,7 +55,7 @@ from megaportraits_tpu_torch.models.discriminator import Discriminator, build_di
 from megaportraits_tpu_torch.models.gbase import Gbase
 from megaportraits_tpu_torch.ops.resize import linear_resize
 from megaportraits_tpu_torch.train.state import TrainState, make_optimizer
-from megaportraits_tpu_torch.utils.pretrained import pretrained_report
+from megaportraits_tpu_torch.utils.pretrained import maybe_load_pretrained
 
 
 def init_states(cfg: Config, seed: int = 0, policy: Policy = DEFAULT_POLICY,
@@ -63,18 +63,20 @@ def init_states(cfg: Config, seed: int = 0, policy: Policy = DEFAULT_POLICY,
                 ) -> Tuple[Gbase, Discriminator, PerceptualLoss, TrainState, TrainState]:
     """Gbase, the discriminator and the frozen perceptual loss with seeded
     random weights on `device` (the card by default; raises if there is
-    none and the caller did not ask for the CPU), and the G and D states
-    with their optimisers (``cfg.training.lr`` over ``base_epochs *
-    steps_per_epoch`` steps). Prints JAX's report on
-    ``cfg.training.pretrained_path``, and raises where a pretrained bundle
-    lies there (``utils/pretrained.py`` has no loader yet)."""
-    print(pretrained_report(cfg.training.pretrained_path))
+    none and the caller did not ask for the CPU), the pretrained bundle at
+    ``cfg.training.pretrained_path`` grafted into Gbase and the loss when
+    there is one (JAX's report printed either way; a directory with only
+    JAX's Orbax bundle raises), and the G and D states with their
+    optimisers (``cfg.training.lr`` over ``base_epochs * steps_per_epoch``
+    steps)."""
     dev = resolve_device(device)
     arch = cfg.make_arch()
     gbase = cfg.make_gbase(policy=policy, device=dev, seed=seed)
     disc = build_discriminator(arch, policy=policy, device=dev, seed=seed + 1)
     ploss = build_perceptual_loss(arch, policy=policy, device=dev, seed=seed + 2,
                                   weights=DEFAULT_WEIGHTS)
+    gbase, ploss, report = maybe_load_pretrained(cfg.training.pretrained_path, gbase, ploss)
+    print(report)
     t = cfg.training
     total_steps = t.base_epochs * (t.steps_per_epoch or 1)
     g_state = TrainState(gbase, make_optimizer(gbase, t.lr, total_steps))

@@ -621,3 +621,65 @@ def test_main_student_bookkeeping_matches_jax(clip_dir, tmp_path, monkeypatch, c
     assert max(b["avatar_index"].max() for b in trec.batches) <= 2
     jck, tck = jcfg.training.checkpoint_path, tcfg.training.checkpoint_path
     assert _steps_on_disk(tck) == _steps_on_disk(jck) == [2, 4, 5]
+
+
+class _EyeStub:
+    """68 points whose eyes follow the frame's mean; with `fail_after`, no
+    landmarks from that call on (the driver then sends zero masks)."""
+
+    is_proxy, num_points = False, 68
+
+    def __init__(self, fail_after=None):
+        self.calls, self.fail_after = 0, fail_after
+
+    def detect(self, img):
+        self.calls += 1
+        if self.fail_after is not None and self.calls > self.fail_after:
+            return None
+        h, w = img.shape[:2]
+        m = float(img.mean())
+        lm = np.tile([[w / 2, h / 2]], (68, 1))
+        a = np.linspace(0, 2 * np.pi, 6, endpoint=False)
+        for lo, cx in ((36, 0.3 * w), (42, 0.7 * w)):
+            lm[lo:lo + 6] = np.stack([cx + 0.1 * w * np.cos(a) + 8 * m,
+                                      0.4 * h + 0.05 * h * np.sin(a)], 1)
+        return lm
+
+
+@pytest.mark.parametrize("provider", ["stub68", "none", "fails_later"])
+def test_main_base_gaze_masks_match_jax(clip_dir, tmp_path, monkeypatch, capsys, provider):
+    """use_gaze_loss: the same 68-point stub in both registries (masks on
+    every batch), none (the box proxy: the "gaze term skipped" line, no
+    masks), or one that stops giving landmarks after the first batch (zero
+    masks from then on)."""
+    from megaportraits_tpu.data import landmarks as jlandmarks
+    from megaportraits_tpu_torch.data import landmarks
+
+    make = {"stub68": _EyeStub, "none": lambda: None,
+            "fails_later": lambda: _EyeStub(fail_after=BATCH)}[provider]
+    jlandmarks.set_landmark_provider(make())
+    landmarks.set_landmark_provider(make())
+    try:
+        jrec, trec = _Recorder(), _Recorder()
+        _stub_base(monkeypatch, jrec, trec)
+        jcfg, tcfg = _configs(clip_dir, tmp_path, use_gaze_loss=True, log_interval=1,
+                              save_interval=10)
+        jout = _run(monkeypatch, capsys, tmp_path / "jax",
+                    lambda: jmain_base.train_base(jcfg, 3))
+        tout = _run(monkeypatch, capsys, tmp_path / "port",
+                    lambda: main_base.train_base(tcfg, 3, device="cpu"))
+    finally:
+        jlandmarks.set_landmark_provider(None)
+        landmarks.set_landmark_provider(None)
+    assert tout == jout
+    skipped = ("use_gaze_loss: no 68-point landmark provider (converted FAN weights "
+               "absent) — gaze term skipped")
+    assert (skipped in tout) == (provider == "none")
+    _assert_batches_equal(trec.batches, jrec.batches)
+    masks = [b.get("gaze_masks") for b in trec.batches]
+    if provider == "none":
+        assert all(m is None for m in masks)
+    else:
+        assert all(m is not None and m.shape == (BATCH, SIZE, SIZE, 2) for m in masks)
+        assert masks[0].sum() > 0
+        assert (masks[-1].sum() == 0) == (provider == "fails_later")

@@ -57,5 +57,15 @@ def test_port_imports_nothing_of_jax():
                  "megaportraits_tpu_torch.losses.perceptual",
                  "megaportraits_tpu_torch.models.discriminator",
                  "megaportraits_tpu_torch.core.config",
-                 "megaportraits_tpu_torch.utils.profile_drive"):
+                 "megaportraits_tpu_torch.utils.profile_drive",
+                 "megaportraits_tpu_torch.ops.warp",
+                 "megaportraits_tpu_torch.ops.resize",
+                 "megaportraits_tpu_torch.models.fan",
+                 "megaportraits_tpu_torch.data.landmarks",
+                 "megaportraits_tpu_torch.losses.gaze",
+                 "megaportraits_tpu_torch.losses.vggface",
+                 "megaportraits_tpu_torch.losses.perceptual_multi",
+                 "megaportraits_tpu_torch.losses.rome",
+                 "megaportraits_tpu_torch.utils.convert_weights",
+                 "megaportraits_tpu_torch.eval.metrics"):
         assert name in result["imported"]

@@ -124,3 +124,45 @@ def grad_errors(module, jax_grads):
         want_all.append(want.ravel())
     got_all, want_all = np.concatenate(got_all), np.concatenate(want_all)
     return per_leaf, np.linalg.norm(got_all - want_all) / np.linalg.norm(want_all)
+
+
+def frozen_bn_statistics(tree, seed=0):
+    """`tree` (a numpy params tree) with every leaf named ``var`` or
+    ``*_var`` drawn from U(0.5, 1.5) and every ``mean`` / ``*_mean`` from
+    N(0, 0.2): the frozen networks (FAN, InceptionResnetV1) keep their
+    BatchNorm statistics among their parameters, where ``numpy_fill``'s
+    N(0, 0.05) would give negative variances."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, a):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name == "var" or name.endswith("_var"):
+            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        if name == "mean" or name.endswith("_mean"):
+            return (rng.normal(size=a.shape) * 0.2).astype(np.float32)
+        return a
+
+    return jax.tree_util.tree_map_with_path(draw, tree)
+
+
+def numpy_state_dict(module, seed=0):
+    """numpy draws for every tensor of a torch `module`'s state_dict, as a
+    pretrained checkpoint holds them: BatchNorm variances U(0.5, 1.5),
+    means U(-0.3, 0.3), scales U(0.8, 1.2), biases N(0, 0.1), weights
+    N(0, 2/fan_in)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in module.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("running_var"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith("running_mean"):
+            a = rng.uniform(-0.3, 0.3, shape)
+        elif len(shape) == 1 and k.endswith("weight"):
+            a = rng.uniform(0.8, 1.2, shape)
+        elif len(shape) == 1:
+            a = rng.normal(0, 0.1, shape)
+        else:
+            a = rng.normal(0, (2.0 / max(int(np.prod(shape[1:])), 1)) ** 0.5, shape)
+        out[k] = torch.from_numpy(a.astype(np.float32))
+    return out
