@@ -47,7 +47,14 @@ Phases, in order; any failure exits non-zero:
      'running'), set_source + 2 frames with the trunk on K2; the trunk's
      operands folded once more than before the steps, K2 once a frame,
      frames finite, the K2 trunk against float32 as in phase 5;
-  11. stage-2 training: init_hr_state + make_hr_train_step, FULL,
+  11. Gbase remat (phase_remat): the stage-1 step of phase 9 under remat
+     'none', 'selective' and 'full' at batch 2 and 'selective' at batch 4
+     (stage1-base.yaml's batch), 1 warm-up and 2 timed steps each: ms/step
+     and peak memory; 'selective' and 'full' must peak below 'none', and
+     their first steps' metrics agree with 'none''s within 1e-3 relative.
+     (Phase 9 and the drivers train with init_states' default, JAX's:
+     'selective' at 512.)
+  12. stage-2 training: init_hr_state + make_hr_train_step, FULL,
      stage2-hr.yaml's shapes (base 512, Genh at 1024, batch 2, lr 1e-5),
      bf16 compute, a seeded frozen Gbase with calibrated BatchNorms and its
      trunk on K2; 1 warm-up and 3 timed steps: every metric, ms/step,
@@ -56,7 +63,7 @@ Phases, in order; any failure exits non-zero:
      statistics moved, Gbase and VGG19 bit for bit; Genh's state through
      CheckpointManager and back into a fresh state, bit for bit, and one
      Genh frame from it within 1e-6;
-  12. stage-3 training: init_student_state + make_student_train_step,
+  13. stage-3 training: init_student_state + make_student_train_step,
      FULL, stage3-student.yaml's shapes (512, batch 4, 4 avatars, lr 1e-4),
      the inline GHR teacher (calibrated, its trunk on K2); 1 warm-up and 3
      timed steps as in 11, K2 four times a step, the Student and its
@@ -64,7 +71,7 @@ Phases, in order; any failure exits non-zero:
      'running' (K2 once a sample), 'batch' (no K2, no statistic changed)
      and include_enh=False ([0, 1]); one step on a batch with 'target01'
      (no teacher, no kernel);
-  13. the training drivers (train/main_{base,hr,student}.py), FULL, in a
+  14. the training drivers (train/main_{base,hr,student}.py), FULL, in a
      temporary working directory, on 2 clips of 6 smooth frames written
      straight into EMODataset's npz cache at 512 and 1024 (no cv2 or PyYAML
      on the card's machine: Configs built here). Their Gbase's trunk is put
@@ -90,7 +97,16 @@ Phases, in order; any failure exits non-zero:
      the host clock after a synchronise), the set-up time, the time the
      driver waited on the prefetch per step, the bytes copied
      host-to-device per step and the peak memory;
-  14. the pretrained bundle and eval (phase_bundle_eval): synthetic
+  15. the data-parallel path (phase_distributed), in phase 14's directory:
+     an in-process NCCL group of one rank and a mesh over it; two plain
+     stage-1 steps (FULL 512, batch 2) and one through the data-parallel
+     path from the same state, whose gap to the plain step (metrics,
+     parameters; both gaps printed) must be no larger than twice the two
+     plain steps' gap; then the stage-3 driver for 2 steps under the group
+     (mesh_shape {data: 1}) with K2 in the teacher (4 launches a step,
+     counted in the JSON line), its checkpoint restored into a plain
+     Student bit for bit;
+  16. the pretrained bundle and eval (phase_bundle_eval): synthetic
      original .pth files at their real sizes (2DFAN-4, InceptionResnetV1,
      VGG16 with the LPIPS heads, VGG19, resnet18, 6DRepNet) made from
      seeded port modules through the converter's tables, converted,
@@ -103,13 +119,13 @@ Phases, in order; any failure exits non-zero:
      InceptionResnetV1 at 160; the graft report against the FULL leaf
      counts; PerceptualLoss(use_vggface=True) forward + backward at 512,
      batch 2, and its peak memory;
-  15. the stage-1 driver with use_gaze_loss (phase_driver_gaze): 512, batch
+  17. the stage-1 driver with use_gaze_loss (phase_driver_gaze): 512, batch
      2, 2 steps, pretrained_path at the bundle: the FAN provider
      installed, gaze_masks on every batch with their coverage, loss_G_gaze
      finite, the masks' ms a batch, the prefetch wait, steps/s;
-  16. one JSON line listing every kernel with its numbers, the launches
-     summed over the driven paths (phases 5, 7, 10 to 15);
-  17. last line: {"ok": true, "device": {...}}.
+  18. one JSON line listing every kernel with its numbers, the launches
+     summed over the driven paths (phases 5, 7, 10 and 12 to 17);
+  19. last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 5 samples after 2 warm-ups (a training
 step: of 3 after 1); the kernels, their plain versions and the library
@@ -959,6 +975,70 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
     return dict(ms=ms, peak=peak, launches=served)
 
 
+DIST_TIMED_STEPS = 3  # of each, in turns, after the one compared step
+REMAT_RUNS = (("none", 2), ("selective", 2), ("full", 2), ("selective", 4))
+REMAT_STEPS = 2  # timed, after one warm-up step
+
+
+def phase_remat(torch, dev, smi, arch="full", size=TRAIN_SIZE, policy=None,
+                runs=REMAT_RUNS):
+    """Gbase remat: the stage-1 step (init_states + make_train_step, `arch`,
+    `size`, seeded weights and batches) under each (remat mode, batch) of
+    `runs`, 1 warm-up and REMAT_STEPS timed steps each: ms/step and peak
+    memory. The peaks of 'selective' and 'full' must be below that of
+    'none' at the same batch, and their first steps' metrics within 1e-3
+    relative of 'none''s (the recompute is the same forward)."""
+    from megaportraits_tpu_torch.core.config import Config
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
+
+    results = {}
+    for mode, batch in runs:
+        cfg = Config()
+        cfg.model.arch = arch
+        cfg.training.steps_per_epoch = 1
+        gbase, disc, ploss, g_state, d_state = init_states(
+            cfg, seed=0, policy=policy or DEFAULT_POLICY, device=dev, remat_mode=mode)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        batches = [{k: torch.cat([smooth_image(torch, gen, dev, size) for _ in range(batch)])
+                    for k in TRAIN_IMAGES} for _ in range(1 + REMAT_STEPS)]
+        step = make_train_step(ploss, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, first = [], None
+        for b in batches:
+            (g_state, d_state, metrics, _), ms = cuda_timed(
+                torch, lambda: step(g_state, d_state, b))
+            step_ms.append(ms)
+            first = first or {k: v.item() for k, v in metrics.items()}
+        peak = torch.cuda.max_memory_allocated()
+        ms = statistics.median(step_ms[1:])
+        results[(mode, batch)] = dict(ms=ms, peak=peak, first=first)
+        print(f"remat {mode}, batch {batch}: {ms:.3f} ms/step (median of {REMAT_STEPS} "
+              f"after 1 warm-up; samples {[round(t, 3) for t in step_ms]}) = "
+              f"{1e3 / ms:.3f} steps/s; peak memory {peak / 2 ** 30:.2f} GiB "
+              f"(max_memory_allocated); first step loss_G {first['loss_G']:.6g} | {smi}")
+        for k, v in first.items():
+            check(math.isfinite(v), f"remat {mode}: {k} is not finite ({v})")
+        del gbase, disc, ploss, g_state, d_state, batches, step, metrics
+        torch.cuda.empty_cache()
+    for (mode, batch), r in results.items():
+        base = results.get(("none", batch))
+        if mode == "none" or base is None:
+            continue
+        worst = max(abs(v - base["first"][k]) / max(abs(base["first"][k]), 1e-6)
+                    for k, v in r["first"].items())
+        print(f"remat {mode} against none at batch {batch}: peak {r['peak'] / 2 ** 30:.2f} "
+              f"/ {base['peak'] / 2 ** 30:.2f} GiB, {r['ms']:.3f} / {base['ms']:.3f} ms/step, "
+              f"first-step metrics within {worst:.3g} relative")
+        check(r["peak"] < base["peak"], f"remat {mode} peaks at {r['peak']}, none at "
+                                        f"{base['peak']}")
+        check(worst <= 1e-3, f"remat {mode}: first-step metrics {worst:.3g} relative from "
+                             f"none's")
+    return results
+
+
 # configs/training/stage2-hr.yaml and stage3-student.yaml (read by hand: the
 # card's machine has no YAML package).
 HR_TRAIN = dict(size=512, batch=2, lr=1.0e-5)
@@ -1576,6 +1656,173 @@ def phase_driver_student(torch, dev, smi, work, bare_ms):
     return dict(launches=n["launches"])
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def param_gap(torch, a, b):
+    """The largest absolute difference between two lists of tensors."""
+    return max((x - y).abs().max().item() for x, y in zip(a, b, strict=True))
+
+
+def phase_distributed(torch, dev, smi, work, arch="full", size=TRAIN_SIZE,
+                      batch=TRAIN_BATCH, policy=None, student_batch=STUDENT_TRAIN["batch"],
+                      driver_steps=2):
+    """The data-parallel path on the card: an in-process process group of
+    one rank (NCCL; gloo on the CPU) and the mesh over it.
+
+    The stage-1 step (`arch`, `size`, `batch`, seeded) from one state: two
+    plain steps, then the step through the data-parallel path (the models
+    broadcast from rank 0, BatchNorm and the cycle loss reducing over the
+    data group, the optimisers all-reducing the gradients, the metrics
+    averaged). Its gap to the first plain step (metrics, relative;
+    parameters, absolute) must be no larger than twice the gap between the
+    two plain steps, the card's run-to-run noise (nondeterministic backward
+    kernels), and zero when that is zero. Then DIST_TIMED_STEPS more steps
+    of each in turns (the overhead of the data-parallel path at world size
+    1, and its all-reduces a step counted). Then the stage-3 driver for
+    `driver_steps` steps under the group (mesh_shape {data: 1}), the teacher
+    of work/teacher with its trunk on K2 (student_batch launches a step);
+    its checkpoint restores into a plain state bit for bit."""
+    import torch.distributed as dist
+
+    from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
+    from megaportraits_tpu_torch.core.config import Config
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from megaportraits_tpu_torch.models.genh import build_ghr
+    from megaportraits_tpu_torch.parallel.mesh import make_mesh
+    from megaportraits_tpu_torch.train import main_student
+    from megaportraits_tpu_torch.train.state import TrainState, make_optimizer
+    from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
+    from megaportraits_tpu_torch.train.train_student import init_student_state
+
+    policy = policy or DEFAULT_POLICY
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"data": 1}, device=dev)
+        print(f"distributed: {backend} group of {dist.get_world_size()} rank, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(mesh is not None and mesh.mesh_dim_names == ("data", "model"),
+              "no mesh over the group")
+        cfg = Config()
+        cfg.model.arch = arch
+        cfg.training.steps_per_epoch = 1
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(6)
+        b = {k: torch.cat([smooth_image(torch, gen, dev, size) for _ in range(batch)])
+             for k in TRAIN_IMAGES}
+        gbase, disc, ploss, g_state, d_state = init_states(cfg, seed=0, policy=policy,
+                                                           device=dev)
+        start = state_copy(gbase, disc)
+        total = cfg.training.base_epochs
+
+        def run(gbase, disc, ploss, g_state, d_state, step_mesh):
+            gbase.load_state_dict(start[0])
+            disc.load_state_dict(start[1])
+            if g_state is None:
+                g_state = TrainState(gbase, make_optimizer(gbase, cfg.training.lr, total))
+                d_state = TrainState(disc, make_optimizer(disc, cfg.training.lr, total))
+            (_, _, metrics, _), ms = cuda_timed(torch, lambda: make_train_step(
+                ploss, cfg, mesh=step_mesh)(g_state, d_state, b))
+            params = [p.detach().clone() for m in (gbase, disc) for p in m.parameters()]
+            return {k: v.item() for k, v in metrics.items()}, params, ms
+
+        plain = [run(gbase, disc, ploss, None, None, None) for _ in range(2)]
+        parts = init_states(cfg, seed=0, policy=policy, device=dev, mesh=mesh)
+        calls = []
+        all_reduce = dist.all_reduce
+        with Patched(dist, all_reduce=lambda *a, **k: calls.append(1) or all_reduce(*a, **k)):
+            dp = run(*parts, mesh)
+
+        def metric_gap(a, b):
+            return max(abs(v - b[k]) / max(abs(b[k]), 1e-6) for k, v in a.items())
+
+        gaps = dict(plain_metrics=metric_gap(plain[1][0], plain[0][0]),
+                    dp_metrics=metric_gap(dp[0], plain[0][0]),
+                    plain_params=param_gap(torch, plain[1][1], plain[0][1]),
+                    dp_params=param_gap(torch, dp[1], plain[0][1]))
+        print(f"distributed step ({arch.upper()} {size}x{size}, batch {batch}): plain "
+              f"{plain[0][2]:.3f} and {plain[1][2]:.3f} ms, data-parallel {dp[2]:.3f} ms "
+              f"(CUDA events, one step each, the first of its models); gaps to the first "
+              f"plain step: the second plain step metrics {gaps['plain_metrics']:.3g} "
+              f"relative, parameters {gaps['plain_params']:.3g} absolute; the "
+              f"data-parallel step metrics {gaps['dp_metrics']:.3g}, parameters "
+              f"{gaps['dp_params']:.3g} | {smi}")
+        for kind in ("metrics", "params"):
+            check(gaps[f"dp_{kind}"] <= 2 * gaps[f"plain_{kind}"],
+                  f"the data-parallel step's {kind} are {gaps[f'dp_{kind}']:.3g} from the "
+                  f"plain step's, two plain steps {gaps[f'plain_{kind}']:.3g}")
+        # The overhead: steps of both in turns (plain, data-parallel, ...),
+        # each set of models going on from its own state.
+        steps = {"plain": (make_train_step(ploss, cfg), g_state, d_state),
+                 "data-parallel": (make_train_step(parts[2], cfg, mesh=mesh), *parts[3:])}
+        turns = {name: [] for name in steps}
+        for _ in range(DIST_TIMED_STEPS):
+            for name, (step, g, d) in steps.items():
+                turns[name].append(cuda_timed(torch, lambda: step(g, d, b))[1])
+        medians = {name: statistics.median(ms) for name, ms in turns.items()}
+        print(f"distributed step overhead at world size 1: plain "
+              f"{medians['plain']:.3f} ms/step, data-parallel {medians['data-parallel']:.3f} "
+              f"ms/step (medians of {DIST_TIMED_STEPS} in turns; samples "
+              f"{ {k: [round(x, 3) for x in v] for k, v in turns.items()} }) = "
+              f"{medians['data-parallel'] - medians['plain']:+.3f} ms; {len(calls)} "
+              f"all-reduces in one data-parallel step | {smi}")
+        del gbase, disc, ploss, g_state, d_state, parts, steps, plain, dp
+        torch.cuda.empty_cache()
+
+        teachers = []
+
+        def k2_teacher(*args, **kwargs):
+            teacher = build_ghr(*args, **kwargs)
+            teacher.gbase.g2d.use_chain_kernel = True
+            teachers.append(teacher)
+            return teacher
+
+        cfg = driver_config(work, "student_dp", batch=student_batch, save_interval=2,
+                            log_interval=1, lr=STUDENT_TRAIN["lr"],
+                            num_avatars=STUDENT_TRAIN["avatars"], mesh_shape={"data": 1})
+        with Patched(main_student, build_ghr=k2_teacher):
+            metrics, n = run_driver(torch, main_student, lambda: main_student.train_student(
+                cfg, driver_steps, teacher_ckpt=str(work / "teacher"), device=dev),
+                driver_steps)
+        (teacher,) = teachers
+        k2_calls = student_batch * driver_steps
+        print(f"distributed driver stage 3 ({driver_steps} steps under the group): "
+              f"launches {n['launches']}, K2 expected {k2_calls}; last metrics {metrics}; "
+              f"{n['loop_s'] * 1e3 / driver_steps:.3f} ms/step on the host clock; peak "
+              f"{n['peak'] / 2 ** 30:.2f} GiB | {smi}")
+        check(all(math.isfinite(v) for v in metrics.values()), f"metrics {metrics}")
+        check_trunk_launches("distributed driver stage 3", n["launches"], k2_calls,
+                             len(teacher.gbase.g2d.trunk_names))
+        check(step_dirs(work / "student_dp") == [driver_steps],
+              f"checkpoints {step_dirs(work / 'student_dp')}")
+    finally:
+        dist.destroy_process_group()
+
+    saved = torch.load(work / "student_dp" / str(driver_steps) / "checkpoint.pt",
+                       map_location="cpu", weights_only=True)["student"]
+    _, state = init_student_state(cfg, seed=1, policy=policy, image_size=TRAIN_SIZE,
+                                  device=dev)
+    CheckpointManager(str(work / "student_dp")).restore({"student": state})
+    same = same_weights(torch, state.model, saved["model"])
+    moments = state.tx.state_dict()["adamw"]["state"]
+    same_moments = all(torch.equal(moments[i][k].cpu(), v)
+                       for i, m in saved["adamw"]["state"].items() for k, v in m.items())
+    print(f"distributed checkpoint restored into a plain Student: weights bit for bit "
+          f"{same}, AdamW state bit for bit {same_moments}, step {state.step}")
+    check(same and same_moments and state.step == driver_steps,
+          "the distributed checkpoint does not restore bit for bit")
+    return dict(launches=n["launches"], gaps=gaps)
+
+
 def phase_drivers(torch, dev, smi, bare):
     """The three drivers in a temporary working directory (runs/,
     output_images/ and the checkpoints land there), on clips written into
@@ -1601,9 +1848,11 @@ def phase_drivers(torch, dev, smi, bare):
             hr = phase_driver_hr(torch, dev, smi, work, bare["hr"], base.pop("best"))
             torch.cuda.empty_cache()
             student = phase_driver_student(torch, dev, smi, work, bare["student"])
+            torch.cuda.empty_cache()
+            distributed = phase_distributed(torch, dev, smi, work)
         finally:
             os.chdir(here)
-    return [base["launches"], hr["launches"], student["launches"]]
+    return [base["launches"], hr["launches"], student["launches"], distributed["launches"]]
 
 
 # phase_bundle_eval: a synthetic pretrained bundle at the real sizes, the
@@ -1967,6 +2216,9 @@ def main():
         paths.append(result["launches"])
         bare[name] = result["ms"]
         torch.cuda.empty_cache()
+        if name == "base":
+            phase_remat(torch, dev, smi)
+            torch.cuda.empty_cache()
     paths.extend(phase_drivers(torch, dev, smi, bare))
     torch.cuda.empty_cache()
     import tempfile
@@ -1980,8 +2232,9 @@ def main():
                                        bare["base"])["launches"])
     # Launches over every driven path: stage 1, HR serving, serving after
     # stage-1 training, the HR step, the Student step and its teacher, the
-    # three drivers (serving the stage-1 export included), the frames that
-    # eval scores and the stage-1 driver with the gaze term.
+    # three drivers (serving the stage-1 export included), the stage-3
+    # driver under the process group, the frames that eval scores and the
+    # stage-1 driver with the gaze term.
     launches = {k: sum(p.get(k, 0) for p in paths) for k in launches}
     print(f"launches over every driven path: {launches}")
 

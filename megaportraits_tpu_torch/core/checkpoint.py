@@ -24,6 +24,11 @@ The payload keys are those of the JAX package's training scripts
 
 Orbax checkpoints written by the JAX package are not read: weights cross
 from JAX only through ``utils/jax_bridge.py``.
+
+Under a process group (``parallel/mesh.py``) every rank calls ``save``: the
+optimiser gathers the moments of sharded parameters (a collective), so the
+file has the single-process format and restores in one process; rank 0
+alone writes, and all ranks leave ``save`` once the step is on disk.
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ import shutil
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from megaportraits_tpu_torch.parallel.mesh import is_main_process
 from megaportraits_tpu_torch.train.state import TrainState
 
 FILE_NAME = "checkpoint.pt"
@@ -42,9 +49,7 @@ FILE_NAME = "checkpoint.pt"
 
 def _to_saved(value: Any) -> Any:
     if isinstance(value, TrainState):
-        return {"model": value.model.state_dict(),
-                "adamw": value.tx.adamw.state_dict(),
-                "schedule": value.tx.schedule.state_dict(),
+        return {"model": value.model.state_dict(), **value.tx.state_dict(),
                 "step": value.step}
     if isinstance(value, nn.Module):
         return value.state_dict()
@@ -56,8 +61,7 @@ def _to_saved(value: Any) -> Any:
 def _fill(like: Any, saved: Any, path: str) -> Any:
     if isinstance(like, TrainState):
         like.model.load_state_dict(saved["model"], strict=True)
-        like.tx.adamw.load_state_dict(saved["adamw"])
-        like.tx.schedule.load_state_dict(saved["schedule"])
+        like.tx.load_state_dict(saved)
         like.step = saved["step"]
         return like
     if isinstance(like, nn.Module):
@@ -96,8 +100,16 @@ class CheckpointManager:
         """Write `payload` as `step`; False (nothing written) if `step` is
         not newer than the latest step. The write is done when this
         returns: `wait` is the JAX manager's switch for its asynchronous
-        saves and changes nothing here."""
+        saves and changes nothing here. Under a process group every rank
+        calls it and rank 0 writes."""
         del wait
+        saved = _to_saved(payload)
+        written = is_main_process() and self._write(step, saved)
+        if dist.is_initialized():
+            dist.barrier()
+        return written
+
+    def _write(self, step: int, saved: Any) -> bool:
         latest = self.latest_step()
         if latest is not None and step <= latest:
             return False
@@ -106,7 +118,7 @@ class CheckpointManager:
         tmp = os.path.join(self.directory, f".{step}.tmp-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(_to_saved(payload), os.path.join(tmp, FILE_NAME))
+        torch.save(saved, os.path.join(tmp, FILE_NAME))
         os.rename(tmp, final)
         for old in self._steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
@@ -122,3 +134,7 @@ class CheckpointManager:
         saved = torch.load(os.path.join(self.directory, str(step), FILE_NAME),
                            map_location="cpu", weights_only=True)
         return _fill(payload_like, saved, "")
+
+    def close(self) -> None:
+        """Nothing to wait for: every save is on disk when it returns (JAX's
+        manager finishes its asynchronous saves here)."""

@@ -123,10 +123,11 @@ class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
 
     def make_gbase(self, policy=None, device: Union[str, torch.device] = DEFAULT_DEVICE,
-                   seed: int = 0):
+                   seed: int = 0, remat: str = "none"):
         """Gbase from the model section with seeded random weights on
         `device` (the card by default; raises if there is none and the
-        caller did not ask for the CPU)."""
+        caller did not ask for the CPU) and the `remat` mode ('none',
+        'selective', 'full': ``models/gbase.py``)."""
         from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
         from megaportraits_tpu_torch.models.gbase import build_gbase
 
@@ -137,6 +138,7 @@ class Config:
             warp_normalize_mode=self.model.warp_normalize_mode,
             rotation_input_size=self.model.rotation_input_size,
             descriptor_input_size=self.model.descriptor_input_size,
+            remat=remat,
         )
 
     def make_arch(self):

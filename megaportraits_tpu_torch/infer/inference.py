@@ -26,6 +26,7 @@ import torch
 
 from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
 from megaportraits_tpu_torch.core.config import Config, load_config
+from megaportraits_tpu_torch.core.debug import apply_platform_env
 from megaportraits_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from megaportraits_tpu_torch.infer.streaming import BN_MODES, check_bn_mode
 from megaportraits_tpu_torch.models.gbase import Gbase
@@ -111,15 +112,15 @@ def main(cfg: Optional[Config] = None,
             help="BatchNorm stats: 'running' (eval-mode, reference "
                  "convention) or 'batch' (per-input stats: for "
                  "small-batch-trained checkpoints)")
-        parser.add_argument("--device", default=DEFAULT_DEVICE,
-                            help="torch device (default: cuda)")
+        parser.add_argument("--device", default=None,
+                            help="torch device (default: $MEGAPORTRAITS_PLATFORM, else cuda)")
         args = parser.parse_args()
         cfg = load_config(args.config)
         if args.reference_normalize:
             cfg.inference.reference_normalize = True
         if args.bn_mode:
             cfg.inference.bn_mode = args.bn_mode
-        device = args.device
+        device = apply_platform_env(args.device)
     from PIL import Image
 
     model = cfg.make_gbase(device=resolve_device(device), seed=0)

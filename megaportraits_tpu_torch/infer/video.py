@@ -19,7 +19,8 @@ import torch
 
 from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
 from megaportraits_tpu_torch.core.config import load_config
-from megaportraits_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from megaportraits_tpu_torch.core.debug import apply_platform_env
+from megaportraits_tpu_torch.core.device import resolve_device
 from megaportraits_tpu_torch.infer.inference import load_image
 from megaportraits_tpu_torch.infer.streaming import BN_MODES, ReenactmentSession
 from megaportraits_tpu_torch.models.gbase import Gbase
@@ -73,12 +74,12 @@ def main() -> None:
     parser.add_argument(
         "--bn-mode", choices=BN_MODES, default="running",
         help="BatchNorm stats: 'batch' for small-batch-trained checkpoints")
-    parser.add_argument("--device", default=DEFAULT_DEVICE,
-                        help="torch device (default: cuda)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: $MEGAPORTRAITS_PLATFORM, else cuda)")
     args = parser.parse_args()
 
     cfg = load_config(args.config)
-    model = cfg.make_gbase(device=resolve_device(args.device), seed=0)
+    model = cfg.make_gbase(device=resolve_device(apply_platform_env(args.device)), seed=0)
     CheckpointManager(cfg.inference.checkpoint_path).restore({"g_variables": model})
     n = reenact_video(args.source, args.driving, args.output, model, size=args.size,
                       max_frames=args.max_frames,

@@ -1,7 +1,9 @@
 """SixDRepNet head-pose estimator in deploy mode (counterpart of
 ``megaportraits_tpu/models/repvgg.py``): a RepVGG trunk with one
 reparameterized 3x3 conv + ReLU per block, global average pool, a linear
-6-dim head, the Gram-Schmidt ortho6d rotation and Euler angles.
+6-dim head, the Gram-Schmidt ortho6d rotation and Euler angles; and
+``SixDRepNet2`` (a resnet18 trunk with the same head) with the
+``geodesic_loss`` its trainers use.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from torch import nn
 
 from megaportraits_tpu_torch.core.arch import FULL, Arch
 from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
+from megaportraits_tpu_torch.models.resnet import BasicBlock, _ResNetTrunk
 from megaportraits_tpu_torch.nn.layers import TorchConv, TorchDense
 
 
@@ -122,3 +125,27 @@ class SixDRepNet(nn.Module):
         six = self.linear_reg(pooled)
         rot = rotation_6d_to_matrix(six.float())
         return rot, euler_angles_from_matrix(rot) * (180.0 / math.pi)
+
+
+class SixDRepNet2(nn.Module):
+    """The ResNet-backbone 6D-rotation estimator: a resnet18 trunk (FULL
+    widths) -> global average pool -> linear 6 -> ortho6d rotation
+    [B, 3, 3]."""
+
+    def __init__(self, policy: Policy = DEFAULT_POLICY, device=None):
+        super().__init__()
+        self.trunk = _ResNetTrunk(BasicBlock, (2, 2, 2, 2), policy=policy, device=device)
+        self.linear_reg = TorchDense(self.trunk.out_channels, 6, policy=policy,
+                                     device=device)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        pooled = self.trunk(x, train).mean(dim=(1, 2)).float()
+        return rotation_6d_to_matrix(self.linear_reg(pooled).float())
+
+
+def geodesic_loss(m1: torch.Tensor, m2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """The mean geodesic angle (radians) between rotations m1 and m2
+    [B, 3, 3]; the cosine is clipped to (-1 + eps, 1 - eps)."""
+    m = m1.float() @ m2.float().transpose(1, 2)
+    cos = (m[:, 0, 0] + m[:, 1, 1] + m[:, 2, 2] - 1.0) / 2.0
+    return torch.mean(torch.arccos(torch.clamp(cos, -1.0 + eps, 1.0 - eps)))

@@ -5,6 +5,7 @@
     1x1 conv to 512; Eapp's appearance descriptor.
   * ResNet18 (fc -> 6): Emtn's head-pose net; translation = out[:, 3:].
   * _ResNetTrunk(BasicBlock): Emtn's expression net.
+  * ResNet50: the torchvision classifier (no caller in the pipeline).
 """
 
 from __future__ import annotations
@@ -153,6 +154,23 @@ class ResNet18(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = self.trunk(x, train).mean(dim=(1, 2))  # global average pool
+        return x if self.fc is None else self.fc(x)
+
+
+class ResNet50(nn.Module):
+    """torchvision resnet50; `num_classes=0` returns pooled trunk features."""
+
+    def __init__(self, num_classes: int = 1000, policy: Policy = DEFAULT_POLICY,
+                 arch: Arch = FULL, device=None):
+        super().__init__()
+        self.trunk = _ResNetTrunk(Bottleneck, arch.resnet50_layers, policy=policy,
+                                  arch=arch, device=device)
+        self.fc = (TorchDense(self.trunk.out_channels, num_classes, policy=policy,
+                              device=device)
+                   if num_classes else None)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.trunk(x, train).mean(dim=(1, 2))
         return x if self.fc is None else self.fc(x)
 
 

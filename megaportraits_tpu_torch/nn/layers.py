@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
+from megaportraits_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def to_channels_first(x: torch.Tensor) -> torch.Tensor:
@@ -270,9 +271,17 @@ class BatchNorm(nn.Module):
     ``0.9 * old + 0.1 * new`` only when the module is in ``.train()`` mode,
     the counterpart of JAX's ``mutable=['batch_stats']``; a module in
     ``.eval()`` mode can use batch statistics without recording them.
+
+    The batch statistics are two reductions, the mean and then the mean of
+    the centred squares. With ``sync_group`` set (``parallel/mesh.
+    sync_batch_norm``) both sums and the count are summed over that group
+    of data-parallel ranks by a reduction that autograd differentiates: the
+    statistics of the global batch, as JAX's GSPMD computes them, and the
+    same running statistics on every rank.
     """
 
     momentum = 0.1  # weight of the new batch statistic
+    sync_group = None  # the data-parallel group the statistics span
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  policy: Policy = DEFAULT_POLICY, device=None):
@@ -292,11 +301,28 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def batch_statistics(self, xf: torch.Tensor):
+        """(mean, var) of `xf` over every axis but the last, over the ranks
+        of ``sync_group`` when it is set."""
+        dims = tuple(range(xf.ndim - 1))
+        total = xf.sum(dim=dims)
+        # A tensor in both cases: a division by a Python number on the card
+        # multiplies by its reciprocal, which rounds apart from the synced
+        # path's division.
+        count = total.new_full((1,), xf.numel() // xf.shape[-1])
+        if self.sync_group is not None:
+            summed = all_reduce_sum(torch.cat([total, count]), self.sync_group)
+            total, count = summed[:-1], summed[-1:]
+        mean = total / count
+        squares = torch.square(xf - mean).sum(dim=dims)
+        if self.sync_group is not None:
+            squares = all_reduce_sum(squares, self.sync_group)
+        return mean, squares / count
+
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.float()
         if train:
-            dims = tuple(range(xf.ndim - 1))
-            var, mean = torch.var_mean(xf, dim=dims, correction=0)
+            mean, var = self.batch_statistics(xf)
             if self.training:
                 with torch.no_grad():
                     m = self.momentum

@@ -17,6 +17,11 @@ stopping (native targets only), the export ``{"genh_variables"}``.
 The frozen Gbase runs in eval mode under ``torch.no_grad()`` inside the step
 (``train/train_hr.py``) and in the evaluator, so with
 ``G2d.use_chain_kernel`` set its trunk runs on K2, once a sample.
+
+Under ``torchrun`` the driver is data-parallel as ``train/main_base.py``
+is: each rank keeps its rows of every global batch, the frozen Gbase is
+rank 0's, rank 0 alone logs and writes, and the held-out decision is rank
+0's.
 """
 
 from __future__ import annotations
@@ -30,16 +35,19 @@ import torch
 
 from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
 from megaportraits_tpu_torch.core.config import Config, load_config
-from megaportraits_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from megaportraits_tpu_torch.core.debug import apply_platform_env
+from megaportraits_tpu_torch.core.device import DEFAULT_DEVICE
 from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
 from megaportraits_tpu_torch.data.dataset import area_downsample
 from megaportraits_tpu_torch.data.prefetch import prefetch_to_device
 from megaportraits_tpu_torch.eval.heldout import HeldoutEvaluator
 from megaportraits_tpu_torch.infer.inference import restore_gbase
+from megaportraits_tpu_torch.parallel.mesh import distribute, is_main_process, shard_batch
 from megaportraits_tpu_torch.train.main_base import (
-    check_single_device,
+    consider,
     make_dataset,
     set_steps_per_epoch,
+    setup_mesh,
 )
 from megaportraits_tpu_torch.train.train_hr import init_hr_state, make_hr_train_step
 from megaportraits_tpu_torch.utils.logging import MetricsWriter
@@ -51,9 +59,10 @@ def train_hr(cfg: Config, max_steps: Optional[int] = None,
              device: Union[str, torch.device] = DEFAULT_DEVICE) -> dict:
     """Train Genh for `max_steps` steps (``hr_epochs`` epochs by default) on
     `device` (the card by default; raises if there is none and the caller
-    did not ask for the CPU). Returns the last metrics."""
-    check_single_device(cfg)
-    dev = resolve_device(device)
+    did not ask for the CPU; under ``torchrun`` this rank's card). Returns
+    the last metrics, the mean over the ranks."""
+    dev, mesh = setup_mesh(cfg, device)
+    main = is_main_process()
     policy = DEFAULT_POLICY if cfg.training.use_bf16 else FP32_POLICY
     seed = cfg.training.seed
     size = cfg.data.train_width
@@ -62,16 +71,17 @@ def train_hr(cfg: Config, max_steps: Optional[int] = None,
     gbase = cfg.make_gbase(policy=policy, device=dev, seed=seed)
     if gbase_ckpt:
         restore_gbase(gbase, (gbase_ckpt + "/export", gbase_ckpt))
+    distribute(gbase, mesh)
 
     decode_size = size * upscale if native_hr else size
     dataset = make_dataset(cfg, decode_size, decode_size)
     set_steps_per_epoch(cfg, dataset)
 
     genh, ploss, state = init_hr_state(cfg, seed=seed, policy=policy, image_size=size,
-                                       upscale=upscale, device=dev)
-    step_fn = make_hr_train_step(genh, gbase, ploss, cfg, upscale=upscale)
+                                       upscale=upscale, device=dev, mesh=mesh)
+    step_fn = make_hr_train_step(genh, gbase, ploss, cfg, upscale=upscale, mesh=mesh)
     ckpt = CheckpointManager(cfg.training.checkpoint_path)
-    writer = MetricsWriter("runs/hr_logs")
+    writer = MetricsWriter("runs/hr_logs") if main else None
 
     evaluator = None
     holdout = cfg.training.holdout_frames if cfg.training.eval_interval else 0
@@ -84,12 +94,14 @@ def train_hr(cfg: Config, max_steps: Optional[int] = None,
             genh, gbase, clips_hr, holdout,
             cfg.training.batch_size, base_size=size, upscale=upscale,
         )
-        print(f"held-out early stopping: {evaluator.n_pairs} eval pairs, "
-              f"every {cfg.training.eval_interval} steps")
+        if main:
+            print(f"held-out early stopping: {evaluator.n_pairs} eval pairs, "
+                  f"every {cfg.training.eval_interval} steps")
     elif cfg.training.eval_interval:
-        print("WARNING: eval_interval ignored — held-out HR eval needs "
-              "native_hr targets (synthetic targets carry no held-out "
-              "signal)")
+        if main:
+            print("WARNING: eval_interval ignored — held-out HR eval needs "
+                  "native_hr targets (synthetic targets carry no held-out "
+                  "signal)")
         holdout = 0
 
     def hr_batches():
@@ -111,13 +123,13 @@ def train_hr(cfg: Config, max_steps: Optional[int] = None,
             yield {"source": batch["source"], "driving": batch["driving"],
                    "target_hr": target}
 
-    batches = prefetch_to_device(hr_batches(), device=dev)
+    batches = prefetch_to_device((shard_batch(b, mesh) for b in hr_batches()), device=dev)
     total = max_steps or cfg.training.hr_epochs * cfg.training.steps_per_epoch
     metrics = {}
     t0 = time.time()
     for step_idx, batch in zip(range(total), batches):
         state, metrics = step_fn(state, batch)
-        if (step_idx + 1) % cfg.training.log_interval == 0:
+        if main and (step_idx + 1) % cfg.training.log_interval == 0:
             host = {k: float(v) for k, v in metrics.items()}
             writer.write(step_idx, host)
             print(f"hr step {step_idx + 1}/{total}: {host} "
@@ -126,10 +138,11 @@ def train_hr(cfg: Config, max_steps: Optional[int] = None,
             ckpt.save(step_idx + 1, {"genh": state})
         if evaluator is not None and (
                 step_idx + 1) % cfg.training.eval_interval == 0:
-            score, improved = evaluator.consider(state, step_idx + 1)
-            writer.write(step_idx, {"heldout_psnr": score})
-            print(f"hr step {step_idx + 1}: held-out HR PSNR {score:.2f} dB"
-                  f"{'  <- best' if improved else ''}")
+            score, improved = consider(evaluator, state, step_idx + 1)
+            if main:
+                writer.write(step_idx, {"heldout_psnr": score})
+                print(f"hr step {step_idx + 1}: held-out HR PSNR {score:.2f} dB"
+                      f"{'  <- best' if improved else ''}")
     batches.close()
     ckpt.save(total, {"genh": state}, wait=True)
 
@@ -141,12 +154,14 @@ def train_hr(cfg: Config, max_steps: Optional[int] = None,
         genh_variables, best_step, is_best = evaluator.export_variables(state)
         if is_best:
             export_step = best_step
-            print(f"exporting best snapshot (step {best_step}, "
-                  f"held-out {evaluator.best_psnr:.2f} dB)")
+            if main:
+                print(f"exporting best snapshot (step {best_step}, "
+                      f"held-out {evaluator.best_psnr:.2f} dB)")
     else:
         genh_variables = state.model
     export.save(export_step, {"genh_variables": genh_variables}, wait=True)
-    writer.close()
+    if main:
+        writer.close()
     return {k: float(v) for k, v in metrics.items()}
 
 
@@ -161,11 +176,12 @@ def main():
         help="use the legacy nearest-upsampled targets instead of "
              "native-resolution decode",
     )
-    parser.add_argument("--device", default=DEFAULT_DEVICE,
-                        help="torch device (default: cuda)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: $MEGAPORTRAITS_PLATFORM, else cuda)")
     args = parser.parse_args()
     train_hr(load_config(args.config), args.max_steps, args.gbase_ckpt,
-             args.upscale, native_hr=not args.synthetic_targets, device=args.device)
+             args.upscale, native_hr=not args.synthetic_targets,
+             device=apply_platform_env(args.device))
 
 
 if __name__ == "__main__":

@@ -28,11 +28,20 @@ batches stacked on a leading axis, in one call) and ``pool_index`` (a batch
 pool kept on the device, indexed per step). JAX folds them into one jitted
 device program; here they are plain loops and an index, with JAX's
 signatures and results.
+
+Data parallelism (``parallel/mesh.py``): with a mesh, each rank's batch is
+its rows of the global batch (``shard_batch``), ``init_states`` broadcasts
+the models from rank 0 and makes their BatchNorms normalise over the data
+group, the cycle loss sums its negatives over it, the optimisers average
+the gradients (and shard what ``model`` shards), and the metrics are the
+mean over the ranks: the global batch's, as one process prints them.
+``init_states`` also picks JAX's remat default: 'selective' at 256 pixels
+and above, 'none' below.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -54,12 +63,30 @@ from megaportraits_tpu_torch.losses.perceptual import (
 from megaportraits_tpu_torch.models.discriminator import Discriminator, build_discriminator
 from megaportraits_tpu_torch.models.gbase import Gbase
 from megaportraits_tpu_torch.ops.resize import linear_resize
+from megaportraits_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    axis_group,
+    distribute,
+    is_main_process,
+    mean_over_ranks,
+)
 from megaportraits_tpu_torch.train.state import TrainState, make_optimizer
 from megaportraits_tpu_torch.utils.pretrained import maybe_load_pretrained
 
 
+class BaseTrainer(NamedTuple):
+    """The stage-1 modules and step, bundled (JAX's ``BaseTrainer``)."""
+
+    gbase: Gbase
+    disc: Discriminator
+    ploss: PerceptualLoss
+    train_step: Any  # (g_state, d_state, batch) -> (g_state, d_state, metrics, xhat)
+
+
 def init_states(cfg: Config, seed: int = 0, policy: Policy = DEFAULT_POLICY,
-                device: Union[str, torch.device] = DEFAULT_DEVICE
+                device: Union[str, torch.device] = DEFAULT_DEVICE,
+                image_size: Optional[int] = None, remat_mode: Optional[str] = None,
+                mesh=None
                 ) -> Tuple[Gbase, Discriminator, PerceptualLoss, TrainState, TrainState]:
     """Gbase, the discriminator and the frozen perceptual loss with seeded
     random weights on `device` (the card by default; raises if there is
@@ -68,24 +95,33 @@ def init_states(cfg: Config, seed: int = 0, policy: Policy = DEFAULT_POLICY,
     there is one (JAX's report printed either way; a directory with only
     JAX's Orbax bundle raises), and the G and D states with their
     optimisers (``cfg.training.lr`` over ``base_epochs * steps_per_epoch``
-    steps)."""
+    steps). Gbase's `remat_mode` defaults as in JAX: 'selective' when the
+    training size (`image_size`, else ``cfg.data.train_width``) is at least
+    256, else 'none'. With a `mesh`, the models are distributed over it
+    (``distribute``) and the optimisers make its collectives."""
     dev = resolve_device(device)
+    size = image_size or cfg.data.train_width
+    if remat_mode is None:
+        remat_mode = "selective" if size >= 256 else "none"
     arch = cfg.make_arch()
-    gbase = cfg.make_gbase(policy=policy, device=dev, seed=seed)
+    gbase = cfg.make_gbase(policy=policy, device=dev, seed=seed, remat=remat_mode)
     disc = build_discriminator(arch, policy=policy, device=dev, seed=seed + 1)
     ploss = build_perceptual_loss(arch, policy=policy, device=dev, seed=seed + 2,
                                   weights=DEFAULT_WEIGHTS)
     gbase, ploss, report = maybe_load_pretrained(cfg.training.pretrained_path, gbase, ploss)
-    print(report)
+    if is_main_process():
+        print(report)
+    for model in (gbase, disc, ploss):
+        distribute(model, mesh)
     t = cfg.training
     total_steps = t.base_epochs * (t.steps_per_epoch or 1)
-    g_state = TrainState(gbase, make_optimizer(gbase, t.lr, total_steps))
-    d_state = TrainState(disc, make_optimizer(disc, t.lr, total_steps))
+    g_state = TrainState(gbase, make_optimizer(gbase, t.lr, total_steps, mesh=mesh))
+    d_state = TrainState(disc, make_optimizer(disc, t.lr, total_steps, mesh=mesh))
     return gbase, disc, ploss, g_state, d_state
 
 
 def make_train_step(ploss: PerceptualLoss, cfg: Config, unroll: int = 1,
-                    pool_index: bool = False):
+                    pool_index: bool = False, mesh=None):
     """The stage-1 step ``(g_state, d_state, batch) -> (g_state, d_state,
     metrics, xhat)``. `batch` holds [B, H, W, 3] images in [0, 1] under
     'source', 'driving', 'source_next', 'source_star', 'driving_star', and
@@ -99,7 +135,11 @@ def make_train_step(ploss: PerceptualLoss, cfg: Config, unroll: int = 1,
     leading axis, as JAX's scan does). With ``pool_index=True`` it is
     ``(g_state, d_state, pool, i)``: the step on batch `i` of `pool`, a
     batch dict with a leading pool axis that stays on the device. The two
-    exclude each other (``ValueError``)."""
+    exclude each other (``ValueError``).
+
+    With a `mesh` (from ``init_states(..., mesh=mesh)``) `batch` holds this
+    rank's rows of the global batch (along the batch axis, the second one
+    when unrolled) and the metrics are the mean over the ranks."""
     if pool_index and unroll > 1:
         raise ValueError("pool_index and unroll>1 are mutually exclusive")
     t = cfg.training
@@ -157,7 +197,8 @@ def make_train_step(ploss: PerceptualLoss, cfg: Config, unroll: int = 1,
         _, _, z_pred_all = gbase.encode_motion(torch.cat([xhat, xhat_star]), True)
         z_pred, z_star_pred = split(z_pred_all, 2)
         loss_cos = cosine_loss([(z_pred, zd), (z_star_pred, zd)],
-                               [(z_pred, zd_star), (z_star_pred, zd_star)])
+                               [(z_pred, zd_star), (z_star_pred, zd_star)],
+                               group=axis_group(mesh, DATA_AXIS))
         loss_pairwise = torch.mean(torch.abs(i_pose.float() - i_exp.float()))
         loss_identity = ploss(xhat_star, xs_star)
 
@@ -190,7 +231,8 @@ def make_train_step(ploss: PerceptualLoss, cfg: Config, unroll: int = 1,
 
         g_state.apply_gradients(g_grads)
         d_state.apply_gradients(d_grads)
-        return g_state, d_state, {k: v.detach() for k, v in metrics.items()}, xhat
+        metrics = mean_over_ranks({k: v.detach() for k, v in metrics.items()}, mesh)
+        return g_state, d_state, metrics, xhat
 
     if pool_index:
         def pool_step(g_state: TrainState, d_state: TrainState,

@@ -17,6 +17,10 @@ One step does what the JAX step does:
     w_per x the VGG19-only perceptual loss(pred01, target), where Genh's
     tanh output is compared in [0, 1]: pred01 = (xhat_hr + 1) / 2;
   * AdamW on a cosine schedule over ``hr_epochs * steps_per_epoch`` steps.
+With a mesh (``parallel/mesh.py``) each rank's batch is its rows of the
+global batch: Genh is distributed from rank 0 with its BatchNorms
+normalising over the data group (both passes), its optimiser averages the
+gradients, and the metrics are the mean over the ranks.
 Not ported: ``donate`` and the frozen variables threaded as jit arguments,
 which serve XLA's buffers and the TPU compile service.
 """
@@ -34,6 +38,7 @@ from megaportraits_tpu_torch.losses.perceptual import PerceptualLoss, build_perc
 from megaportraits_tpu_torch.models.gbase import Gbase
 from megaportraits_tpu_torch.models.genh import Genh, build_genh
 from megaportraits_tpu_torch.ops.resize import linear_resize
+from megaportraits_tpu_torch.parallel.mesh import distribute, mean_over_ranks
 from megaportraits_tpu_torch.train.state import TrainState, make_optimizer
 
 HR_LOSS_WEIGHTS = {"vgg19": 1.0, "vggface": 0.0, "gaze": 0.0, "lpips": 0.0}
@@ -41,12 +46,14 @@ HR_LOSS_WEIGHTS = {"vgg19": 1.0, "vggface": 0.0, "gaze": 0.0, "lpips": 0.0}
 
 def init_hr_state(cfg: Config, seed: int = 0, policy: Policy = DEFAULT_POLICY,
                   image_size: int = 512, upscale: int = 2,
-                  device: Union[str, torch.device] = DEFAULT_DEVICE
+                  device: Union[str, torch.device] = DEFAULT_DEVICE, mesh=None
                   ) -> Tuple[Genh, PerceptualLoss, TrainState]:
     """Genh, the frozen VGG19-only perceptual loss (seeded random weights on
     `device`, the card by default) and Genh's state with its optimiser
     (``cfg.training.lr`` over ``hr_epochs * steps_per_epoch`` steps). Genh
-    runs at ``image_size * upscale``, which must be a multiple of 8."""
+    runs at ``image_size * upscale``, which must be a multiple of 8. With a
+    `mesh`, Genh is distributed over it and its optimiser makes its
+    collectives."""
     if (image_size * upscale) % 8:
         raise ValueError(f"Genh needs a size divisible by 8, got "
                          f"{image_size} x {upscale}")
@@ -55,19 +62,22 @@ def init_hr_state(cfg: Config, seed: int = 0, policy: Policy = DEFAULT_POLICY,
     genh = build_genh(arch, policy=policy, device=dev, seed=seed)
     ploss = build_perceptual_loss(arch, policy=policy, device=dev, seed=seed + 1,
                                   weights=HR_LOSS_WEIGHTS)
+    distribute(genh, mesh)
     steps = (cfg.training.steps_per_epoch or 1) * cfg.training.hr_epochs
-    return genh, ploss, TrainState(genh, make_optimizer(genh, cfg.training.lr, steps))
+    return genh, ploss, TrainState(genh, make_optimizer(genh, cfg.training.lr, steps,
+                                                        mesh=mesh))
 
 
 def make_hr_train_step(genh: Genh, gbase: Gbase, ploss: PerceptualLoss, cfg: Config,
                        upscale: int = 2, w_sup: float = 1.0, w_unsup: float = 1.0,
-                       w_per: float = 1.0):
+                       w_per: float = 1.0, mesh=None):
     """The stage-2 step ``(state, batch) -> (state, metrics)``. `batch`
     holds 'source' and 'driving' [B, H, W, 3] and 'target_hr' [B, H *
     upscale, W * upscale, 3], images in [0, 1]. `state` is Genh's (from
     ``init_hr_state``), updated in place and returned; the metrics
     'loss_hr', 'loss_sup', 'loss_unsup' and 'loss_per' are detached
-    float32 scalars. Gbase and the loss nets stay as they are."""
+    float32 scalars (the mean over the ranks of `mesh`). Gbase and the
+    loss nets stay as they are."""
     del cfg  # the JAX step takes it too and reads nothing of it
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -94,6 +104,6 @@ def make_hr_train_step(genh: Genh, gbase: Gbase, ploss: PerceptualLoss, cfg: Con
         state.apply_gradients(torch.autograd.grad(total, state.params, allow_unused=True))
         metrics = {"loss_hr": total, "loss_sup": loss_sup, "loss_unsup": loss_unsup,
                    "loss_per": loss_per}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, mean_over_ranks({k: v.detach() for k, v in metrics.items()}, mesh)
 
     return step

@@ -11,6 +11,11 @@ runs on kernel K2, once a sample. ``make_teacher_forward`` is the teacher
 on its own, for targets made ahead of the step. The JAX module splits it
 into two jitted graphs and threads the variables as jit arguments, to get
 past the TPU compile service; the port needs neither.
+
+With a mesh (``parallel/mesh.py``) each rank's batch is its rows of the
+global batch: the Student is distributed from rank 0 with its BatchNorms
+normalising over the data group, its optimiser averages the gradients, and
+the loss is the mean over the ranks.
 """
 
 from __future__ import annotations
@@ -25,24 +30,28 @@ from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from megaportraits_tpu_torch.infer.streaming import check_bn_mode
 from megaportraits_tpu_torch.models.genh import GHR
 from megaportraits_tpu_torch.models.student import Student, build_student
+from megaportraits_tpu_torch.parallel.mesh import distribute, mean_over_ranks
 from megaportraits_tpu_torch.train.state import TrainState, make_optimizer
 
 
 def init_student_state(cfg: Config, seed: int = 0, policy: Policy = DEFAULT_POLICY,
                        image_size: int = 512,
-                       device: Union[str, torch.device] = DEFAULT_DEVICE
+                       device: Union[str, torch.device] = DEFAULT_DEVICE, mesh=None
                        ) -> Tuple[Student, TrainState]:
     """The Student for ``cfg.training.num_avatars`` avatars (seeded random
     weights on `device`, the card by default) and its state with its
     optimiser (``cfg.training.lr`` over ``student_epochs * steps_per_epoch``
     steps). The Student runs at `image_size`, which must be a multiple of
-    8."""
+    8. With a `mesh`, the Student is distributed over it and its optimiser
+    makes its collectives."""
     if image_size % 8:
         raise ValueError(f"the Student needs a size divisible by 8, got {image_size}")
     student = build_student(cfg.training.num_avatars, cfg.make_arch(), policy=policy,
                             device=resolve_device(device), seed=seed)
+    distribute(student, mesh)
     steps = (cfg.training.steps_per_epoch or 1) * cfg.training.student_epochs
-    return student, TrainState(student, make_optimizer(student, cfg.training.lr, steps))
+    return student, TrainState(student, make_optimizer(student, cfg.training.lr, steps,
+                                                       mesh=mesh))
 
 
 def make_teacher_forward(teacher: GHR, include_enh: bool = True,
@@ -71,14 +80,15 @@ def make_teacher_forward(teacher: GHR, include_enh: bool = True,
     return forward
 
 
-def make_student_train_step(student: Student, teacher: GHR, cfg: Config):
+def make_student_train_step(student: Student, teacher: GHR, cfg: Config, mesh=None):
     """The stage-3 step ``(state, batch) -> (state, metrics)``. `batch`
     holds 'driving' [B, H, W, 3] in [0, 1], 'avatar_index' [B] integers,
     and either 'target01' (the target, made ahead, e.g. by
     ``make_teacher_forward``) or 'source' [B, H, W, 3], from which the
     frozen teacher makes it inline: (tanh + 1) / 2 of GHR with running
     statistics. `state` is the Student's, updated in place and returned;
-    the metric 'loss_student' is a detached float32 scalar."""
+    the metric 'loss_student' is a detached float32 scalar (the mean over
+    the ranks of `mesh`)."""
     del cfg  # the JAX step takes it too and reads nothing of it
     teacher_forward = make_teacher_forward(teacher)
 
@@ -92,6 +102,6 @@ def make_student_train_step(student: Student, teacher: GHR, cfg: Config):
         pred = student(xd, batch["avatar_index"], train=True)
         loss = torch.mean((pred.float() - target01) ** 2)
         state.apply_gradients(torch.autograd.grad(loss, state.params, allow_unused=True))
-        return state, {"loss_student": loss.detach()}
+        return state, mean_over_ranks({"loss_student": loss.detach()}, mesh)
 
     return step

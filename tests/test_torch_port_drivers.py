@@ -397,11 +397,11 @@ def _stub_base(monkeypatch, jrec, trec):
                     batch["driving"] if unroll == 1 else None)
         return step
 
-    def t_init_states(cfg, seed, policy, device):
+    def t_init_states(cfg, seed, policy, device, mesh=None):
         trec.built["steps_per_epoch"] = cfg.training.steps_per_epoch
         return None, None, None, _port_state(), _port_state()
 
-    def t_make_train_step(ploss, cfg, unroll=1):
+    def t_make_train_step(ploss, cfg, unroll=1, mesh=None):
         def step(g, d, batch):
             trec.batches.append(_arrays(batch))
             metrics = {"loss_G": torch.tensor(g.step + 0.5), "loss_D": torch.tensor(0.25)}
@@ -498,12 +498,12 @@ def _stub_hr(monkeypatch, jrec, trec):
             return _jax_advance(state, 1), {"loss_hr": jnp.float32(int(state.step) + 0.5)}
         return step
 
-    def t_init_hr_state(cfg, seed, policy, image_size, upscale, device):
+    def t_init_hr_state(cfg, seed, policy, image_size, upscale, device, mesh=None):
         trec.built.update(steps_per_epoch=cfg.training.steps_per_epoch,
                           image_size=image_size, upscale=upscale)
         return None, None, _port_state()
 
-    def t_make_hr_train_step(genh, gbase, ploss, cfg, upscale):
+    def t_make_hr_train_step(genh, gbase, ploss, cfg, upscale, mesh=None):
         trec.built["gbase_w"] = gbase.w.detach().numpy().copy()
 
         def step(state, batch):
@@ -574,12 +574,12 @@ def _stub_student(monkeypatch, jrec, trec):
             return _jax_advance(state, 1), {"loss_student": jnp.float32(0.125)}
         return step
 
-    def t_init_student_state(cfg, seed, policy, image_size, device):
+    def t_init_student_state(cfg, seed, policy, image_size, device, mesh=None):
         trec.built.update(steps_per_epoch=cfg.training.steps_per_epoch,
                           num_avatars=cfg.training.num_avatars, image_size=image_size)
         return None, _port_state()
 
-    def t_make_student_train_step(student, teacher, cfg):
+    def t_make_student_train_step(student, teacher, cfg, mesh=None):
         trec.built["teacher_w"] = teacher.w.detach().numpy().copy()
 
         def step(state, batch):

@@ -3,8 +3,10 @@
 A fresh interpreter blocks ``jax``, ``flax``, ``optax`` and ``orbax`` (an
 import of any raises), and ``PIL`` and ``cv2``, which the machine with the
 card lacks and which the port imports only inside the functions that read
-or write files; it imports every module of ``megaportraits_tpu_torch`` and
-lists the modules of the JAX package that got loaded: there must be none.
+or write files, and ``matplotlib`` and ``scipy``, which the port imports
+only inside the functions that draw or compute with them; it imports every
+module of ``megaportraits_tpu_torch`` and lists the modules of the JAX
+package that got loaded: there must be none.
 Every module imports on a host without a card (the kernels are built and
 ``triton``/``nvcc`` reached only when a kernel is launched).
 """
@@ -18,7 +20,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
-for blocked in ("jax", "flax", "optax", "orbax", "PIL", "cv2"):
+for blocked in ("jax", "flax", "optax", "orbax", "PIL", "cv2", "matplotlib", "scipy"):
     sys.modules[blocked] = None
 import megaportraits_tpu_torch as pkg
 names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -67,5 +69,16 @@ def test_port_imports_nothing_of_jax():
                  "megaportraits_tpu_torch.losses.perceptual_multi",
                  "megaportraits_tpu_torch.losses.rome",
                  "megaportraits_tpu_torch.utils.convert_weights",
-                 "megaportraits_tpu_torch.eval.metrics"):
+                 "megaportraits_tpu_torch.eval.metrics",
+                 "megaportraits_tpu_torch.parallel.mesh",
+                 "megaportraits_tpu_torch.parallel.sharding_rules",
+                 "megaportraits_tpu_torch.core.debug",
+                 "megaportraits_tpu_torch.utils.profiling",
+                 "megaportraits_tpu_torch.utils.viz",
+                 "megaportraits_tpu_torch.models.encoders",
+                 "megaportraits_tpu_torch.models.cifar_resnet",
+                 "megaportraits_tpu_torch.models.repvgg",
+                 "megaportraits_tpu_torch.models.resnet",
+                 "megaportraits_tpu_torch.ops.warp_alt",
+                 "megaportraits_tpu_torch.data.pose_datasets"):
         assert name in result["imported"]

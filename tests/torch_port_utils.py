@@ -166,3 +166,55 @@ def numpy_state_dict(module, seed=0):
             a = rng.normal(0, (2.0 / max(int(np.prod(shape[1:])), 1)) ** 0.5, shape)
         out[k] = torch.from_numpy(a.astype(np.float32))
     return out
+
+
+def free_port():
+    """A TCP port on localhost that was free a moment ago."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(argv, world_size, cwd, timeout=240, env=None):
+    """Run `argv` (a command line, `python ...` without the interpreter) as
+    `world_size` ranks of one gloo group, with the environment ``torchrun``
+    gives each rank (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``), one torch thread each. Waits for all
+    of them for at most `timeout` seconds, kills the rest and fails on a
+    timeout or a nonzero exit; returns each rank's standard output."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    port = free_port()
+    procs = []
+    for rank in range(world_size):
+        rank_env = dict(os.environ, **(env or {}), RANK=str(rank), LOCAL_RANK=str(rank),
+                        WORLD_SIZE=str(world_size), MASTER_ADDR="localhost",
+                        MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                        PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+        procs.append(subprocess.Popen([sys.executable, *argv], cwd=cwd, env=rank_env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    outs = []
+    deadline = time.monotonic() + timeout
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=max(deadline - time.monotonic(), 1)))
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+        raise AssertionError(f"ranks of {argv} did not finish in {timeout} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    for rank, (proc, (out, err)) in enumerate(zip(procs, outs)):
+        assert proc.returncode == 0, (f"rank {rank} of {argv} exited {proc.returncode}:\n"
+                                      f"{err[-4000:]}")
+    return [out for out, _ in outs]
