@@ -73,10 +73,12 @@ Phases, in order; any failure exits non-zero:
      (no teacher, no kernel);
   14. the training drivers (train/main_{base,hr,student}.py), FULL, in a
      temporary working directory, on 2 clips of 6 smooth frames written
-     straight into EMODataset's npz cache at 512 and 1024 (no cv2 or PyYAML
-     on the card's machine: Configs built here). Their Gbase's trunk is put
-     on K2 from outside: a Config subclass whose make_gbase sets
-     use_chain_kernel, and a wrapper of main_student's build_ghr.
+     straight into EMODataset's npz cache at 512 and 1024 (no cv2 on the
+     card's machine to decode mp4s). Each runs as `python -m
+     megaportraits_tpu_torch train-<stage> --config <yaml>` in this process,
+     on a YAML file written here as text (read by the port's own reader:
+     the card's machine has no PyYAML) whose model.use_chain_kernel: true
+     puts their Gbase's trunk on K2.
      - stage 1: train_base at 512, batch 2, unroll 2, save, log and
        evaluate every 2 steps on 2 tail frames a clip, 4 steps; then again
        to step 6 at unroll 1: it must print the resume line, go on from
@@ -87,6 +89,19 @@ Phases, in order; any failure exits non-zero:
        evaluation every 2, the frozen Gbase from the stage-1 export (bit for
        bit); K2 2 a step plus one a row of every evaluated batch; the
        genh_variables export restores bit for bit;
+     - the serving commands (phase_cli, after stage 1), from YAML files
+       with model.use_chain_kernel: true, on the stage-1 export with its
+       BatchNorm statistics calibrated: `infer` PNG in and .png out, JPEG
+       in and .jpg out (K2 once each; the PNG the in-process
+       inference_base bit for bit, the JPEG its bytes), `infer` again as a
+       subprocess (a fresh interpreter: its PNG the same), `reenact` on 8
+       PNG frames of a pattern into an output pattern (K2 8 times; the
+       frames within 1/255 of a ReenactmentSession's on the same decoded
+       inputs; frames/s beside the session's), `eval` on those frames
+       (finite, no kernel); every output decodes, 512x512x3, not flat; no
+       yaml, PIL or cv2 in sys.modules; each command's seconds split into
+       config, model build, restore, device compute and host I/O, and the
+       JPEG codec's seconds an image at 512 and 1024 on the host;
      - stage 3: train_student at 512, batch 4, 4 steps, the teacher from a
        ghr_variables checkpoint written from the two exports (bit for bit
        after the steps); K2 4 a step.
@@ -124,7 +139,8 @@ Phases, in order; any failure exits non-zero:
      installed, gaze_masks on every batch with their coverage, loss_G_gaze
      finite, the masks' ms a batch, the prefetch wait, steps/s;
   18. one JSON line listing every kernel with its numbers, the launches
-     summed over the driven paths (phases 5, 7, 10 and 12 to 17);
+     summed over the driven paths (phases 5, 7, 10 and 12 to 17, the
+     serving commands of phase 14 included);
   19. last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 5 samples after 2 warm-ups (a training
@@ -1299,13 +1315,18 @@ def phase_train_student(torch, dev, smi, arch="full", size=STUDENT_TRAIN["size"]
 
 
 # The drivers (train/main_*.py) on 2 clips of DRIVER_FRAMES smooth frames,
-# written straight into EMODataset's npz cache: the card's machine has no cv2
-# to decode mp4s, and no PyYAML, so each driver gets a Config built here.
+# written straight into EMODataset's npz cache (the card's machine has no cv2
+# to decode mp4s), each run as `python -m megaportraits_tpu_torch <command>
+# --config <yaml>` in this process, on a YAML file written here as text.
 DRIVER_CLIPS = 2
 DRIVER_FRAMES = 6
 DRIVER_STEPS = 4
 DRIVER_RESUMED_STEPS = 6
 DRIVER_HOLDOUT = 2
+# The model and training keys of every YAML file this script writes: the
+# G2d trunk on K2 (a CPU rehearsal adds arch tiny and use_bf16 false).
+DRIVER_MODEL = {"use_chain_kernel": True}
+DRIVER_TRAINING = {}
 
 
 def write_clips(torch, dev, directory, sizes):
@@ -1325,28 +1346,73 @@ def write_clips(torch, dev, directory, sizes):
     (directory / "meta.json").write_text(json.dumps({"clips": {vid: {} for vid in ids}}))
 
 
-def driver_config(work, name, batch=TRAIN_BATCH, **training):
-    """A FULL Config at TRAIN_SIZE whose Gbase runs its G2d trunk on K2
-    (use_chain_kernel), the drivers' own defaults otherwise; clips from
-    work/clips, checkpoints in work/name."""
-    from megaportraits_tpu_torch.core.config import Config
+def yaml_scalar(value):
+    """`value` as YAML text that PyYAML and the port read back as `value`:
+    a float always with a dot ('1e-05' would be a string), a dict as a
+    flow mapping, a string single-quoted."""
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        mantissa, e, exponent = repr(value).partition("e")
+        if "." not in mantissa:
+            mantissa += ".0"
+        return mantissa + e + exponent
+    if isinstance(value, dict):
+        return "{" + ", ".join(f"{k}: {yaml_scalar(v)}" for k, v in value.items()) + "}"
+    return "'" + str(value).replace("'", "''") + "'"
 
-    class K2Config(Config):
-        def make_gbase(self, *args, **kwargs):
-            gbase = super().make_gbase(*args, **kwargs)
-            gbase.g2d.use_chain_kernel = True
-            return gbase
 
-    cfg = K2Config()
-    cfg.data.train_width = cfg.data.train_height = TRAIN_SIZE
-    t = cfg.training
-    t.video_dir = str(work / "clips")
-    t.json_file = str(work / "clips" / "meta.json")
-    t.checkpoint_path = str(work / name)
-    t.batch_size, t.n_sample_frames = batch, DRIVER_FRAMES
-    for k, v in training.items():
-        setattr(t, k, v)
-    return cfg
+def write_yaml(path, sections):
+    """A config file of {section: {key: value}}, as a user writes one."""
+    lines = ["# written by chip_smoke.py"]
+    for name, body in sections.items():
+        lines.append(f"{name}:")
+        lines.extend(f"  {k}: {yaml_scalar(v)}" for k, v in body.items())
+    Path(path).write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def driver_yaml(work, name, batch=TRAIN_BATCH, size=None, **training):
+    """work/<name>.yaml: FULL at `size` (TRAIN_SIZE by default) with the
+    trunk on K2 (model.use_chain_kernel), the drivers' own defaults
+    otherwise; clips from work/clips, checkpoints in work/<name>."""
+    size = size or TRAIN_SIZE
+    return write_yaml(work / f"{name}.yaml", {
+        "data": {"train_width": size, "train_height": size},
+        "model": dict(DRIVER_MODEL),
+        "training": {"video_dir": str(work / "clips"),
+                     "json_file": str(work / "clips" / "meta.json"),
+                     "checkpoint_path": str(work / name), "batch_size": batch,
+                     "n_sample_frames": DRIVER_FRAMES, **DRIVER_TRAINING, **training}})
+
+
+def run_command(argv, module=None, fn=None):
+    """``python -m megaportraits_tpu_torch <argv>`` in this process (its
+    rc must be 0). With `module` and `fn`, what module.fn returned inside
+    it (a driver's last metrics)."""
+    from megaportraits_tpu_torch.__main__ import main as cli
+
+    results, patches = [], {}
+    if fn is not None:
+        inner = getattr(module, fn)
+
+        def recording(*args, **kwargs):
+            results.append(inner(*args, **kwargs))
+            return results[-1]
+
+        patches[fn] = recording
+    argv_before = sys.argv[:]
+    try:
+        with Patched(module or sys, **patches):
+            rc = cli([str(a) for a in argv])
+    finally:
+        sys.argv = argv_before
+    check(rc == 0, f"'{' '.join(map(str, argv))}' returned {rc}")
+    return results[-1] if results else None
 
 
 class Patched:
@@ -1501,6 +1567,7 @@ def phase_driver_base(torch, dev, smi, work, bare_ms):
     K2 or K3 in either call (train mode and batch-statistics evaluation
     bypass them). The export restores into a fresh Gbase bit for bit equal
     to the evaluator's best snapshot; 2 frames served from it with K2."""
+    from megaportraits_tpu_torch.core.config import load_config
     from megaportraits_tpu_torch.infer.inference import restore_gbase
     from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
     from megaportraits_tpu_torch.train import main_base
@@ -1508,11 +1575,11 @@ def phase_driver_base(torch, dev, smi, work, bare_ms):
     numbers, evaluators = [], []
     for unroll, max_steps, start in ((2, DRIVER_STEPS, 0),
                                      (1, DRIVER_RESUMED_STEPS, DRIVER_STEPS)):
-        cfg = driver_config(work, "base", unroll_steps=unroll, save_interval=2,
-                            log_interval=2, eval_interval=2,
-                            holdout_frames=DRIVER_HOLDOUT)
-        metrics, n = run_driver(torch, main_base, lambda: main_base.train_base(
-            cfg, max_steps, device=dev), max_steps - start)
+        path = driver_yaml(work, "base", unroll_steps=unroll, save_interval=2,
+                           log_interval=2, eval_interval=2, holdout_frames=DRIVER_HOLDOUT)
+        argv = ["train-base", "--config", path, "--max-steps", max_steps, "--device", dev]
+        metrics, n = run_driver(torch, main_base, lambda: run_command(
+            argv, main_base, "train_base"), max_steps - start)
         numbers.append(n)
         evaluators.extend(n["evaluators"])
         print(f"driver stage 1 (unroll {unroll}, to step {max_steps}): launches "
@@ -1536,7 +1603,7 @@ def phase_driver_base(torch, dev, smi, work, bare_ms):
     for i, n in enumerate(numbers):
         report_driver(f"driver stage 1, call {i + 1}", n, bare_ms, smi)
 
-    gbase = driver_config(work, "base").make_gbase(device=dev, seed=99)
+    gbase = load_config(str(work / "base.yaml")).make_gbase(device=dev, seed=99)
     check(restore_gbase(gbase, [str(work / "base" / "export")]), "no stage-1 export")
     same = same_weights(torch, gbase, best.best_variables)
     print(f"driver stage 1: exports at steps {exports}; the latest restored into a fresh "
@@ -1566,11 +1633,13 @@ def phase_driver_hr(torch, dev, smi, work, bare_ms, gbase_export):
     every evaluated batch (padded rows included); the genh_variables export
     restores into a fresh Genh bit for bit equal to the best snapshot."""
     from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
+    from megaportraits_tpu_torch.core.config import load_config
     from megaportraits_tpu_torch.models.genh import build_genh
     from megaportraits_tpu_torch.train import main_hr
 
-    cfg = driver_config(work, "hr", save_interval=2, log_interval=2, eval_interval=2,
-                        holdout_frames=DRIVER_HOLDOUT, lr=HR_TRAIN["lr"])
+    path = driver_yaml(work, "hr", save_interval=2, log_interval=2, eval_interval=2,
+                       holdout_frames=DRIVER_HOLDOUT, lr=HR_TRAIN["lr"])
+    cfg = load_config(path)
     frozen = []
     build_step = main_hr.make_hr_train_step
 
@@ -1579,8 +1648,9 @@ def phase_driver_hr(torch, dev, smi, work, bare_ms, gbase_export):
         return build_step(genh, gbase, *args, **kwargs)
 
     with Patched(main_hr, make_hr_train_step=keeping_gbase):
-        metrics, n = run_driver(torch, main_hr, lambda: main_hr.train_hr(
-            cfg, DRIVER_STEPS, gbase_ckpt=str(work / "base"), device=dev), DRIVER_STEPS)
+        metrics, n = run_driver(torch, main_hr, lambda: run_command(
+            ["train-hr", "--config", path, "--max-steps", DRIVER_STEPS, "--gbase-ckpt",
+             work / "base", "--device", dev], main_hr, "train_hr"), DRIVER_STEPS)
     (ev,) = n["evaluators"]
     evals = DRIVER_STEPS // 2
     rows = -(-ev.n_pairs // ev.batch_size) * ev.batch_size
@@ -1606,18 +1676,30 @@ def phase_driver_hr(torch, dev, smi, work, bare_ms, gbase_export):
     return dict(launches=n["launches"])
 
 
+def keeping_teacher(main_student, teachers):
+    """main_student.make_student_train_step that also keeps its teacher, so
+    that it can be checked after the driver returns."""
+    build_step = main_student.make_student_train_step
+
+    def keep(student, teacher, *args, **kwargs):
+        teachers.append(teacher)
+        return build_step(student, teacher, *args, **kwargs)
+
+    return keep
+
+
 def phase_driver_student(torch, dev, smi, work, bare_ms):
     """Stage-3 driver: train_student, FULL, 512, batch 4, 4 avatars,
     DRIVER_STEPS steps; the teacher restored from a {"ghr_variables"}
     checkpoint written here from the stage-1 and stage-2 exports, its
-    trunk switched onto K2 by wrapping the driver's build_ghr. K2 4 times a
-    step; the teacher bit for bit as saved, before and after the steps."""
+    trunk on K2 by the YAML's model.use_chain_kernel. K2 4 times a step;
+    the teacher bit for bit as saved, before and after the steps."""
     from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
     from megaportraits_tpu_torch.infer.inference import restore_gbase
     from megaportraits_tpu_torch.models.genh import build_ghr
     from megaportraits_tpu_torch.train import main_student
 
-    ghr = build_ghr("full", device=dev, seed=2)
+    ghr = build_ghr(DRIVER_MODEL.get("arch", "full"), device=dev, seed=2)
     check(restore_gbase(ghr.gbase, [str(work / "base" / "export")]), "no stage-1 export")
     check(CheckpointManager(str(work / "hr" / "export")).restore(
         {"genh_variables": ghr.genh}) is not None, "no stage-2 export")
@@ -1626,21 +1708,16 @@ def phase_driver_student(torch, dev, smi, work, bare_ms):
     saved = {k: v.detach().cpu().clone() for k, v in ghr.state_dict().items()}
     del ghr
 
+    path = driver_yaml(work, "student", batch=STUDENT_TRAIN["batch"], save_interval=2,
+                       log_interval=2, lr=STUDENT_TRAIN["lr"],
+                       num_avatars=STUDENT_TRAIN["avatars"])
     teachers = []
-
-    def k2_teacher(*args, **kwargs):
-        teacher = build_ghr(*args, **kwargs)
-        teacher.gbase.g2d.use_chain_kernel = True
-        teachers.append(teacher)
-        return teacher
-
-    cfg = driver_config(work, "student", batch=STUDENT_TRAIN["batch"], save_interval=2,
-                        log_interval=2, lr=STUDENT_TRAIN["lr"],
-                        num_avatars=STUDENT_TRAIN["avatars"])
-    with Patched(main_student, build_ghr=k2_teacher):
-        metrics, n = run_driver(torch, main_student, lambda: main_student.train_student(
-            cfg, DRIVER_STEPS, teacher_ckpt=str(work / "teacher"), device=dev),
-            DRIVER_STEPS)
+    with Patched(main_student,
+                 make_student_train_step=keeping_teacher(main_student, teachers)):
+        metrics, n = run_driver(torch, main_student, lambda: run_command(
+            ["train-student", "--config", path, "--max-steps", DRIVER_STEPS,
+             "--teacher-ckpt", work / "teacher", "--device", dev],
+            main_student, "train_student"), DRIVER_STEPS)
     (teacher,) = teachers
     k2_calls = STUDENT_TRAIN["batch"] * DRIVER_STEPS
     same = same_weights(torch, teacher, saved)
@@ -1691,9 +1768,8 @@ def phase_distributed(torch, dev, smi, work, arch="full", size=TRAIN_SIZE,
     import torch.distributed as dist
 
     from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
-    from megaportraits_tpu_torch.core.config import Config
+    from megaportraits_tpu_torch.core.config import Config, load_config
     from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
-    from megaportraits_tpu_torch.models.genh import build_ghr
     from megaportraits_tpu_torch.parallel.mesh import make_mesh
     from megaportraits_tpu_torch.train import main_student
     from megaportraits_tpu_torch.train.state import TrainState, make_optimizer
@@ -1778,21 +1854,17 @@ def phase_distributed(torch, dev, smi, work, arch="full", size=TRAIN_SIZE,
         del gbase, disc, ploss, g_state, d_state, parts, steps, plain, dp
         torch.cuda.empty_cache()
 
+        path = driver_yaml(work, "student_dp", batch=student_batch, size=size,
+                           save_interval=2, log_interval=1, lr=STUDENT_TRAIN["lr"],
+                           num_avatars=STUDENT_TRAIN["avatars"], mesh_shape={"data": 1})
+        cfg = load_config(path)
         teachers = []
-
-        def k2_teacher(*args, **kwargs):
-            teacher = build_ghr(*args, **kwargs)
-            teacher.gbase.g2d.use_chain_kernel = True
-            teachers.append(teacher)
-            return teacher
-
-        cfg = driver_config(work, "student_dp", batch=student_batch, save_interval=2,
-                            log_interval=1, lr=STUDENT_TRAIN["lr"],
-                            num_avatars=STUDENT_TRAIN["avatars"], mesh_shape={"data": 1})
-        with Patched(main_student, build_ghr=k2_teacher):
-            metrics, n = run_driver(torch, main_student, lambda: main_student.train_student(
-                cfg, driver_steps, teacher_ckpt=str(work / "teacher"), device=dev),
-                driver_steps)
+        with Patched(main_student,
+                     make_student_train_step=keeping_teacher(main_student, teachers)):
+            metrics, n = run_driver(torch, main_student, lambda: run_command(
+                ["train-student", "--config", path, "--max-steps", driver_steps,
+                 "--teacher-ckpt", work / "teacher", "--device", dev],
+                main_student, "train_student"), driver_steps)
         (teacher,) = teachers
         k2_calls = student_batch * driver_steps
         print(f"distributed driver stage 3 ({driver_steps} steps under the group): "
@@ -1809,7 +1881,7 @@ def phase_distributed(torch, dev, smi, work, arch="full", size=TRAIN_SIZE,
 
     saved = torch.load(work / "student_dp" / str(driver_steps) / "checkpoint.pt",
                        map_location="cpu", weights_only=True)["student"]
-    _, state = init_student_state(cfg, seed=1, policy=policy, image_size=TRAIN_SIZE,
+    _, state = init_student_state(cfg, seed=1, policy=policy, image_size=size,
                                   device=dev)
     CheckpointManager(str(work / "student_dp")).restore({"student": state})
     same = same_weights(torch, state.model, saved["model"])
@@ -1821,6 +1893,338 @@ def phase_distributed(torch, dev, smi, work, arch="full", size=TRAIN_SIZE,
     check(same and same_moments and state.step == driver_steps,
           "the distributed checkpoint does not restore bit for bit")
     return dict(launches=n["launches"], gaps=gaps)
+
+
+# phase_cli: the serving commands from YAML files, at FULL width.
+CLI_FRAMES = 8
+CLI_FLAT_LEVELS = 2.0  # an output whose pixels' std is below this many levels is flat
+CLI_SESSION_LEVELS = 1  # reenact's frames against the session's, in levels (1/255)
+
+
+HOST_LIBRARIES = ("yaml", "PIL", "cv2")  # what the port's commands must not need
+
+
+class Blocked:
+    """For the length of a `with`, an import of any of `names` raises
+    ImportError (sys.modules holds None for it), whether or not it is
+    installed; what was there before is put back."""
+
+    def __init__(self, names=HOST_LIBRARIES):
+        self.names, self.saved = names, {}
+
+    def __enter__(self):
+        for name in self.names:
+            self.saved[name] = sys.modules.get(name)
+            sys.modules[name] = None
+        return self
+
+    def __exit__(self, *exc):
+        for name, module in self.saved.items():
+            if module is None:
+                del sys.modules[name]
+            else:
+                sys.modules[name] = module
+
+
+class Stopwatch:
+    """Host-clock seconds by label of the wrapped calls, each taken between
+    two synchronises of the card, so that a label owns the device work it
+    queued."""
+
+    def __init__(self, torch, dev):
+        self.sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        self.seconds = {}
+
+    def wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.sync()
+            self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    def patches(self, owner, labels):
+        """{attribute: timed attribute} for Patched(owner, ...)."""
+        return {name: self.wrap(label, getattr(owner, name)) for name, label in labels.items()}
+
+
+def timed_command(torch, dev, argv, patch_sets):
+    """run_command(argv) with the calls of `patch_sets` [(owner, {attribute:
+    label})] timed; returns (seconds by label, total seconds, launches)."""
+    import contextlib
+
+    watch = Stopwatch(torch, dev)
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        for owner, labels in patch_sets:
+            stack.enter_context(Patched(owner, **watch.patches(owner, labels)))
+        watch.sync()
+        t0 = time.perf_counter()
+        with Blocked():
+            run_command(argv)
+        watch.sync()
+        total = time.perf_counter() - t0
+    return watch.seconds, total, counts()
+
+
+def report_command(name, seconds, total, launches, smi, extra=""):
+    parts = ("config", "model build", "restore", "device compute", "host I/O")
+    split = " + ".join(f"{p} {seconds.get(p, 0.0):.3f}" for p in parts)
+    rest = total - sum(seconds.get(p, 0.0) for p in parts)
+    print(f"cli {name}: {total:.3f} s (host clock) = {split} + the rest {rest:.3f} "
+          f"(arguments, imports, set-up); launches {launches}{extra} | {smi}")
+
+
+def phase_cli(torch, dev, smi, work, size=None, frames=CLI_FRAMES):
+    """The serving commands as a user runs them, `python -m
+    megaportraits_tpu_torch <command> --config <yaml>`, at `size`
+    (TRAIN_SIZE by default), from YAML
+    files written as text with model.use_chain_kernel true. They serve the
+    stage-1 driver's export (work/base/export) with its BatchNorm running
+    statistics calibrated on the source/driving pair and saved as a
+    checkpoint of its own (after a few steps the running statistics are
+    still near their start, and the frames would saturate):
+      * `infer` in process: PNG source and driving in, .png out; JPEG in,
+        .jpg out. K2 once each; the PNG equal to the in-process
+        inference_base of the same checkpoint bit for bit, the JPEG the
+        bytes of that result encoded (PIL's default JPEG);
+      * `infer` as a subprocess (a fresh interpreter, the default device):
+        its PNG equal to the in-process one;
+      * `reenact`: `frames` PNG frames of a pattern (pred_frame_%04d.png
+        from 1) into an output pattern; K2 once a frame, the frames within
+        CLI_SESSION_LEVELS of a ReenactmentSession's on the same decoded
+        inputs; frames/s of the command beside the session's own;
+      * `eval` on the reenacted frames against the driving ones: finite
+        metrics, no kernel;
+      * every output decodes, is 512 x 512 x 3, and is not flat;
+      * every command runs with yaml, PIL and cv2 blocked (the card's
+        machine has them installed; an import of one raises), the
+        subprocess too; yaml and PIL are in no sys.modules after.
+    Each command's seconds are split into config, model build, restore,
+    device compute and host I/O."""
+    import ast
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
+    from megaportraits_tpu_torch.core.config import Config, load_config
+    from megaportraits_tpu_torch.data import landmarks
+    from megaportraits_tpu_torch.infer import inference, video
+    from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
+    from megaportraits_tpu_torch.models.gbase import Gbase, calibrate_batch_norm
+    from megaportraits_tpu_torch.utils import image, jpeg
+
+    size = size or TRAIN_SIZE
+    cli_dir = work / "cli"
+    frames_dir, out_dir = cli_dir / "frames", cli_dir / "out"
+    frames_dir.mkdir(parents=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+
+    def uint8(x):
+        return (x[0].clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+
+    source, driving = (uint8(smooth_image(torch, gen, dev, size)) for _ in range(2))
+    drives = [uint8(smooth_image(torch, gen, dev, size)) for _ in range(frames)]
+    inputs = {}
+    t0 = time.perf_counter()
+    for kind in ("png", "jpg"):
+        for name, arr in (("source", source), ("driving", driving)):
+            inputs[name, kind] = str(cli_dir / f"{name}.{kind}")
+            image.write_image(arr, inputs[name, kind])
+    for i, arr in enumerate(drives, start=1):
+        image.write_image(arr, str(frames_dir / f"pred_frame_{i:04d}.png"))
+    print(f"cli: inputs written in {time.perf_counter() - t0:.3f} s (host clock)")
+    big = np.repeat(np.repeat(source, 2, axis=0), 2, axis=1)
+    for arr in (source, big):
+        t0 = time.perf_counter()
+        data = jpeg.encode(arr)
+        t1 = time.perf_counter()
+        check(jpeg.decode(data).shape == arr.shape, "a JPEG decodes to another shape")
+        t2 = time.perf_counter()
+        print(f"cli: JPEG (quality 75, 4:2:0) of {arr.shape[1]}x{arr.shape[0]} ({len(data)} "
+              f"bytes): encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s an image (host "
+              "clock; the decoder walks the Huffman bits in Python)")
+
+    serve = str(cli_dir / "serve")
+    serve_yaml = write_yaml(cli_dir / "serve.yaml", {
+        "data": {"train_width": size, "train_height": size},
+        "model": dict(DRIVER_MODEL), "inference": {"checkpoint_path": serve}})
+    model = load_config(serve_yaml).make_gbase(device=dev, seed=0)
+    check(inference.restore_gbase(model, [str(work / "base" / "export")]),
+          "no stage-1 export")
+    n_bn = calibrate_batch_norm(model, *(torch.from_numpy(a.astype(np.float32) / 255.0)[None]
+                                         .to(dev) for a in (source, driving)))
+    CheckpointManager(serve).save(0, {"g_variables": model})
+    trunk_blocks = len(model.g2d.trunk_names)
+    del model
+    print(f"cli: the stage-1 export with {n_bn} BatchNorms calibrated, saved to {serve}")
+
+    def fresh_model(path):
+        cfg = load_config(path)
+        m = cfg.make_gbase(device=dev, seed=0)
+        check(inference.restore_gbase(m, [cfg.inference.checkpoint_path]), "no checkpoint")
+        return m
+
+    def decoded(path):
+        arr = image.read_image(path)
+        check(arr.shape == (size, size, 3), f"{path}: shape {arr.shape}")
+        check(arr.std() >= CLI_FLAT_LEVELS, f"{path} is flat (std {arr.std():.3f} levels)")
+        return arr
+
+    infer_timers = [(inference, {"load_config": "config", "restore_gbase": "restore",
+                                 "read_image": "host I/O", "pil_bilinear_resize": "host I/O",
+                                 "write_image": "host I/O"}),
+                    (Config, {"make_gbase": "model build"}),
+                    (Gbase, {"generate": "device compute"})]
+    served, measured = {}, []
+    for kind, ext in (("png", ".png"), ("jpg", ".jpg")):
+        out = str(cli_dir / f"infer_{kind}{ext}")
+        path = write_yaml(cli_dir / f"infer_{kind}.yaml", {
+            "data": {"train_width": size, "train_height": size},
+            "model": dict(DRIVER_MODEL),
+            "inference": {"checkpoint_path": serve, "source_image": inputs["source", kind],
+                          "driving_image": inputs["driving", kind], "output_image": out}})
+        seconds, total, launches = timed_command(
+            torch, dev, ["infer", "--config", path, "--device", dev], infer_timers)
+        report_command(f"infer ({kind} in, {ext} out)", seconds, total, launches, smi)
+        check_trunk_launches(f"infer ({kind})", launches, 1, trunk_blocks)
+        measured.append(launches)
+        want = inference.inference_base(inputs["source", kind], inputs["driving", kind],
+                                        fresh_model(path), size=(size, size))
+        if ext == ".png":
+            same = np.array_equal(decoded(out), want)
+        else:
+            decoded(out)
+            same = Path(out).read_bytes() == jpeg.encode(want)
+        print(f"cli infer ({kind}): the output equals the in-process inference_base "
+              f"{'bit for bit' if ext == '.png' else 'encoded, byte for byte'}: {same}")
+        check(same, f"infer's {ext} differs from the in-process result")
+        served[kind] = out
+
+    out_png = served["png"]
+    sub_out = str(cli_dir / "infer_subprocess.png")
+    sub_yaml = write_yaml(cli_dir / "infer_subprocess.yaml", {
+        "data": {"train_width": size, "train_height": size}, "model": dict(DRIVER_MODEL),
+        "inference": {"checkpoint_path": serve, "source_image": inputs["source", "png"],
+                      "driving_image": inputs["driving", "png"], "output_image": sub_out}})
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS=str(torch.get_num_threads()))
+    if dev.type == "cpu":
+        env["MEGAPORTRAITS_PLATFORM"] = "cpu"
+    # `python -m megaportraits_tpu_torch infer --config ...` in a fresh
+    # interpreter whose imports of the host libraries raise; it prints
+    # which of them it holds when the command returns.
+    script = ("import runpy, sys\n"
+              f"for name in {HOST_LIBRARIES!r}:\n"
+              "    sys.modules[name] = None\n"
+              "sys.argv = ['-m', 'infer', '--config', sys.argv[1]]\n"
+              "try:\n"
+              "    runpy.run_module('megaportraits_tpu_torch', run_name='__main__')\n"
+              "except SystemExit as e:\n"
+              "    if e.code:\n"
+              "        raise\n"
+              f"print('held:', [n for n in {HOST_LIBRARIES!r} if sys.modules.get(n)])\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script, sub_yaml], cwd=str(ROOT), env=env,
+                          capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    print(f"cli infer (a subprocess: python -m megaportraits_tpu_torch infer --config ..., "
+          f"{', '.join(HOST_LIBRARIES)} blocked): rc {proc.returncode} in {sub_s:.3f} s (host "
+          f"clock, the interpreter's start and imports included); its output {lines[-2:]}"
+          f"{' stderr ' + proc.stderr[-2000:] if proc.returncode else ''}")
+    check(proc.returncode == 0, "the infer subprocess failed")
+    check(lines[-1:] == ["held: []"], f"the subprocess holds {lines[-1:]}")
+    gap = np.abs(decoded(sub_out).astype(int) - decoded(out_png).astype(int)).max()
+    same = gap == 0
+    print(f"cli infer (subprocess): its PNG equals the in-process command's bit for bit: "
+          f"{same} (max {gap} levels)")
+    check(same, "the subprocess's PNG differs from the in-process one")
+
+    # reenact: the frame pattern into an output pattern.
+    pattern = str(frames_dir / "pred_frame_%04d.png")
+    out_pattern = str(out_dir / "pred_frame_%04d.png")
+    stamps = []
+    session_timer = Stopwatch(torch, dev)
+    reenact_timers = [(video, {"load_config": "config", "load_image": "host I/O",
+                               "read_image": "host I/O", "cv2_linear_resize_u8": "host I/O",
+                               "write_image": "host I/O"}),
+                      (Config, {"make_gbase": "model build"}),
+                      (CheckpointManager, {"restore": "restore"}),
+                      (ReenactmentSession, {"set_source": "device compute",
+                                            "__call__": "device compute"})]
+    loop = video.reenact_video
+
+    def stamped(*args, **kwargs):
+        stamps.append(time.perf_counter())
+        n = loop(*args, **kwargs)
+        session_timer.sync()
+        stamps.append(time.perf_counter())
+        return n
+
+    with Patched(video, reenact_video=stamped):
+        seconds, total, launches = timed_command(
+            torch, dev, ["reenact", "--config", serve_yaml, "--source", inputs["source", "png"],
+                         "--driving", pattern, "--output", out_pattern, "--size", size,
+                         "--device", dev], reenact_timers)
+    written = sorted(p.name for p in out_dir.iterdir())
+    check(written == [f"pred_frame_{i:04d}.png" for i in range(1, frames + 1)],
+          f"reenact wrote {written}")
+    command_fps = frames / (stamps[1] - stamps[0])
+    check_trunk_launches("reenact", launches, frames, trunk_blocks)
+    measured.append(launches)
+
+    model = fresh_model(serve_yaml)
+    session = ReenactmentSession(model=model, bn_mode="running")
+    session.set_source(inference.load_image(inputs["source", "png"], (size, size)))
+    worst, outs = 0, []
+    drive_inputs = [torch.from_numpy(image.cv2_linear_resize_u8(
+        image.read_image(str(frames_dir / f"pred_frame_{i:04d}.png")), (size, size))
+        .astype(np.float32) / 255.0)[None] for i in range(1, frames + 1)]
+    session_call = session_timer.wrap("frames", session.__call__)
+    for i, xd in enumerate(drive_inputs, start=1):
+        xhat = session_call(xd)
+        check(bool(torch.isfinite(xhat).all()), "a session frame is not finite")
+        want = (xhat[0].float().cpu().numpy() * 255).clip(0, 255).astype(np.uint8)
+        got = decoded(str(out_dir / f"pred_frame_{i:04d}.png"))
+        worst = max(worst, int(np.abs(got.astype(int) - want.astype(int)).max()))
+    session_fps = frames / session_timer.seconds["frames"]
+    report_command(f"reenact ({frames} PNG frames of a pattern)", seconds, total, launches,
+                   smi, extra=f"; {command_fps:.3f} frames/s over reenact_video (the "
+                   f"source read and encoded once, then each frame read, resized, driven "
+                   f"and written; host clock) beside the session's own {session_fps:.3f} "
+                   f"frames/s (the drive alone, synchronised, on the same inputs)")
+    print(f"cli reenact: frames against the session's on the same decoded inputs: max "
+          f"{worst} levels (limit {CLI_SESSION_LEVELS})")
+    check(worst <= CLI_SESSION_LEVELS, f"reenact's frames are {worst} levels from the session's")
+    del model, session
+
+    # eval: the reenacted frames against the driving frames.
+    landmarks.set_landmark_provider(None)
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    reset_counts()
+    with contextlib.redirect_stdout(text), Blocked():
+        run_command(["eval", "--output-dir", out_dir, "--target-dir", frames_dir,
+                     "--device", dev])
+    eval_s = time.perf_counter() - t0
+    scores = ast.literal_eval(text.getvalue().strip().splitlines()[-1])
+    eval_launches = counts()
+    print(f"cli eval ({frames} pairs): {eval_s:.3f} s (host clock); {scores}; launches "
+          f"{eval_launches} | {smi}")
+    for k in ("L1", "PSNR", "SSIM"):
+        check(scores[k] is not None and math.isfinite(scores[k]), f"eval {k} {scores[k]}")
+    check(all(v == 0 for v in eval_launches.values()), f"kernels in eval: {eval_launches}")
+    held = [m for m in HOST_LIBRARIES if sys.modules.get(m)]
+    print(f"cli: every command ran with {', '.join(HOST_LIBRARIES)} blocked (an import "
+          f"raises); of them this process holds {held} (data/dataset.py takes cv2 where it "
+          "is installed, as JAX's does, and the card's machine has it)")
+    check("yaml" not in held and "PIL" not in held, f"{held} got imported")
+    return dict(launches={k: sum(m[k] for m in measured) for k in measured[0]})
 
 
 def phase_drivers(torch, dev, smi, bare):
@@ -1845,6 +2249,8 @@ def phase_drivers(torch, dev, smi, bare):
         try:
             base = phase_driver_base(torch, dev, smi, work, bare["base"])
             torch.cuda.empty_cache()
+            cli = phase_cli(torch, dev, smi, work)
+            torch.cuda.empty_cache()
             hr = phase_driver_hr(torch, dev, smi, work, bare["hr"], base.pop("best"))
             torch.cuda.empty_cache()
             student = phase_driver_student(torch, dev, smi, work, bare["student"])
@@ -1852,7 +2258,8 @@ def phase_drivers(torch, dev, smi, bare):
             distributed = phase_distributed(torch, dev, smi, work)
         finally:
             os.chdir(here)
-    return [base["launches"], hr["launches"], student["launches"], distributed["launches"]]
+    return [base["launches"], cli["launches"], hr["launches"], student["launches"],
+            distributed["launches"]]
 
 
 # phase_bundle_eval: a synthetic pretrained bundle at the real sizes, the
@@ -2111,9 +2518,8 @@ def phase_driver_gaze(torch, dev, smi, work, bundle, bare_ms, size=TRAIN_SIZE, s
     clips = work / "clips"
     clips.mkdir()
     write_clips(torch, dev, clips, (size,))
-    cfg = driver_config(work, "gaze", use_gaze_loss=True, pretrained_path=str(bundle),
-                        log_interval=1, save_interval=steps)
-    cfg.data.train_width = cfg.data.train_height = size
+    path = driver_yaml(work, "gaze", size=size, use_gaze_loss=True,
+                       pretrained_path=str(bundle), log_interval=1, save_interval=steps)
     mask_ms, seen = [], []
     make_masks, build_step = main_base.gaze_masks_for_batch, main_base.make_train_step
 
@@ -2140,8 +2546,9 @@ def phase_driver_gaze(torch, dev, smi, work, bundle, bare_ms, size=TRAIN_SIZE, s
     try:
         with Patched(main_base, gaze_masks_for_batch=timed_masks,
                      make_train_step=recording_step):
-            metrics, n = run_driver(torch, main_base, lambda: main_base.train_base(
-                cfg, steps, device=dev), steps)
+            metrics, n = run_driver(torch, main_base, lambda: run_command(
+                ["train-base", "--config", path, "--max-steps", steps, "--device", dev],
+                main_base, "train_base"), steps)
     finally:
         os.chdir(here)
     provider = landmarks.get_landmark_provider()
@@ -2160,7 +2567,7 @@ def phase_driver_gaze(torch, dev, smi, work, bundle, bare_ms, size=TRAIN_SIZE, s
         check(math.isfinite(gaze), f"loss_G_gaze {gaze}")
     check(all(v == 0 for v in n["launches"].values()), f"kernels in training: {n['launches']}")
     check("gaze term skipped" not in n["text"], "the driver skipped the gaze term")
-    check(cfg.model.arch != "full" or pretrained_line == [
+    check(DRIVER_MODEL.get("arch", "full") != "full" or pretrained_line == [
         f"pretrained: gbase leaves={FULL_GBASE_LEAVES}, "
         f"ploss leaves={FULL_PLOSS_LEAVES - VGGFACE_LEAVES}"],
         f"the driver grafted {pretrained_line}")
@@ -2232,7 +2639,8 @@ def main():
                                        bare["base"])["launches"])
     # Launches over every driven path: stage 1, HR serving, serving after
     # stage-1 training, the HR step, the Student step and its teacher, the
-    # three drivers (serving the stage-1 export included), the stage-3
+    # three drivers (serving the stage-1 export included), the serving
+    # commands (infer twice and reenact, in this process), the stage-3
     # driver under the process group, the frames that eval scores and the
     # stage-1 driver with the gaze term.
     launches = {k: sum(p.get(k, 0) for p in paths) for k in launches}

@@ -2,8 +2,12 @@
 ``megaportraits_tpu/core/config.py``).
 
 The same keys and defaults as the JAX package, so one YAML file configures
-either package. ``load_config`` imports PyYAML only when it is called, so
-a ``Config()`` built in code needs no YAML package.
+either package. ``load_config`` reads YAML with ``core/yaml_subset.py``:
+the port needs no YAML package. One field is the port's own:
+``model.use_chain_kernel`` puts the G2d trunk on kernel K2, the switch the
+JAX model has on ``G2d`` (``megaportraits_tpu/models/g2d.py``) with its
+default, off; JAX's ``load_config`` drops the key, so one YAML file still
+configures both packages.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from megaportraits_tpu_torch.core.device import DEFAULT_DEVICE
+from megaportraits_tpu_torch.core.yaml_subset import load_file
 
 
 @dataclasses.dataclass
@@ -94,6 +99,10 @@ class ModelConfig:
     use_bf16: bool = True
     # Norm of the ResBlock2D family: 'batch' (reference) or 'group'.
     norm: str = "batch"
+    # Run the G2d trunk on kernel K2 (ops/kernels/resblock_chain.py) where
+    # JAX's rule allows it: not training, norm 'batch', a map whose sides
+    # are multiples of 8 (models/g2d.py). Elsewhere the plain blocks run.
+    use_chain_kernel: bool = False
 
     def parity(self) -> "ModelConfig":
         return dataclasses.replace(
@@ -126,20 +135,23 @@ class Config:
                    seed: int = 0, remat: str = "none"):
         """Gbase from the model section with seeded random weights on
         `device` (the card by default; raises if there is none and the
-        caller did not ask for the CPU) and the `remat` mode ('none',
-        'selective', 'full': ``models/gbase.py``)."""
+        caller did not ask for the CPU), the `remat` mode ('none',
+        'selective', 'full': ``models/gbase.py``) and its trunk on K2 when
+        ``model.use_chain_kernel`` is set."""
         from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
         from megaportraits_tpu_torch.models.gbase import build_gbase
 
         if policy is None:
             policy = DEFAULT_POLICY if self.model.use_bf16 else FP32_POLICY
-        return build_gbase(
+        gbase = build_gbase(
             self.make_arch(), policy=policy, device=device, seed=seed,
             warp_normalize_mode=self.model.warp_normalize_mode,
             rotation_input_size=self.model.rotation_input_size,
             descriptor_input_size=self.model.descriptor_input_size,
             remat=remat,
         )
+        gbase.g2d.use_chain_kernel = self.model.use_chain_kernel
+        return gbase
 
     def make_arch(self):
         """Arch preset with the config's norm decision applied."""
@@ -154,11 +166,10 @@ def _filter_fields(cls, d: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def load_config(path: str) -> Config:
-    """Load a reference-schema YAML file into a validated Config."""
-    import yaml
-
-    with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+    """Load a reference-schema YAML file into a validated Config. The file
+    is read by ``core/yaml_subset.py``, which resolves it as PyYAML's
+    ``safe_load`` does; keys that are no field are dropped, as in JAX."""
+    raw = load_file(path) or {}
     cfg = Config()
     if raw.get("data"):
         cfg.data = DataConfig(**_filter_fields(DataConfig, raw["data"]))

@@ -13,6 +13,8 @@ the same ``__getitem__`` items and ``frame_batches`` batches. In short:
     augmented alike (flip and colour jitter);
   * a cache hit skips all of it, and needs neither cv2 nor PIL: that is
     how a host without them (the card's machine) reads prepared clips.
+The PNG caches and frame dumps are read and written without PIL
+(``utils/image.py``), with the pixels PIL reads and writes.
 Frames are float32 [0, 1], channels last, as the models take them.
 
 ``area_downsample`` is cv2's ``INTER_AREA`` at an integer factor (the box
@@ -27,6 +29,8 @@ import os
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from megaportraits_tpu_torch.utils.image import load_image, write_image
 
 try:
     import cv2
@@ -229,21 +233,13 @@ def crop_and_warp_face(
     caching — the reference's crop_and_warp_face helper (model.py:2040-2135).
     """
     if cache_path and os.path.exists(cache_path):
-        from PIL import Image
-
-        return np.asarray(
-            Image.open(cache_path).convert("RGB"), dtype=np.float32
-        ) / 255.0
+        return load_image(cache_path)
     rng = rng or np.random.default_rng(0)
     crop = sweet_spot_crop(image, out_size)
     if apply_warp:
         crop = tps_warp(crop, rng, warp_strength)
     if cache_path:
-        from PIL import Image
-
-        Image.fromarray(
-            (np.clip(crop, 0, 1) * 255).astype(np.uint8)
-        ).save(cache_path)
+        write_image((np.clip(crop, 0, 1) * 255).astype(np.uint8), cache_path)
     return crop
 
 
@@ -252,18 +248,10 @@ def remove_background_and_convert_to_rgb(
 ) -> np.ndarray:
     """Standalone background removal with PNG caching (model.py:2096-2135)."""
     if cache_path and os.path.exists(cache_path):
-        from PIL import Image
-
-        return np.asarray(
-            Image.open(cache_path).convert("RGB"), dtype=np.float32
-        ) / 255.0
+        return load_image(cache_path)
     out = remove_background(image)
     if cache_path:
-        from PIL import Image
-
-        Image.fromarray(
-            (np.clip(out, 0, 1) * 255).astype(np.uint8)
-        ).save(cache_path)
+        write_image((np.clip(out, 0, 1) * 255).astype(np.uint8), cache_path)
     return out
 
 
@@ -444,13 +432,9 @@ class EMODataset:
             driving.append(drv)
             if self.save_frame_pngs:
                 # Reference PNG frame dumps (EmoDataset.py:224-240).
-                from PIL import Image
-
                 png_dir = os.path.join(self.cache_dir, f"{video_id}_frames")
-                os.makedirs(png_dir, exist_ok=True)
-                Image.fromarray(
-                    (np.clip(crop, 0, 1) * 255).astype(np.uint8)
-                ).save(os.path.join(png_dir, f"frame_{i}.png"))
+                write_image((np.clip(crop, 0, 1) * 255).astype(np.uint8),
+                            os.path.join(png_dir, f"frame_{i}.png"))
         source = augment_pair(np.stack(source), self.rng).astype(np.float32)
         driving = augment_pair(np.stack(driving), self.rng).astype(np.float32)
         out = {"source_frames": source, "driving_frames": driving}

@@ -7,8 +7,9 @@ matrix [3, 3], (pitch, yaw, roll) degrees):
     (pitch, yaw, roll in radians), its matrix from the port's
     ``ops/affine_grid.rotation_matrix_from_euler_deg``;
   * BIWI: the rotation matrix read from each frame's ``_pose.txt``.
-Nothing downloads. scipy and PIL are imported where a file is read (the
-machine with the card has no PIL).
+Nothing downloads. scipy is imported where a file is read; images are read
+and resized without PIL (``utils/image.py``: PNG or baseline JPEG, PIL's
+bilinear resize), which the machine with the card lacks.
 """
 
 from __future__ import annotations
@@ -20,15 +21,14 @@ import numpy as np
 import torch
 
 from megaportraits_tpu_torch.ops.affine_grid import rotation_matrix_from_euler_deg
+from megaportraits_tpu_torch.utils.image import pil_bilinear_resize, read_image
 
 
 def _load_image(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    from PIL import Image
-
-    img = Image.open(path).convert("RGB")
+    img = read_image(path)
     if size:
-        img = img.resize(size, Image.BILINEAR)
-    return np.asarray(img, dtype=np.float32) / 255.0
+        img = pil_bilinear_resize(img, size)
+    return img.astype(np.float32) / 255.0
 
 
 def _euler_to_matrix_deg(pitch: float, yaw: float, roll: float) -> np.ndarray:

@@ -11,9 +11,10 @@ image.
 
 Images are [0, 1] end to end, as the trainer feeds them;
 ``reference_normalize`` reproduces the reference's [-1, 1] input transform
-and its denormalisation, for converted reference checkpoints. PIL is
-imported where an image is read or written, so the module imports without
-it.
+and its denormalisation, for converted reference checkpoints. Images are
+read, resized and written without PIL (``utils/image.py``): a PNG or
+baseline JPEG in, PIL's bilinear resize, a PNG or PIL's default JPEG out
+by the output's extension; the same pixels and bytes as JAX's PIL calls.
 """
 
 from __future__ import annotations
@@ -30,19 +31,19 @@ from megaportraits_tpu_torch.core.debug import apply_platform_env
 from megaportraits_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from megaportraits_tpu_torch.infer.streaming import BN_MODES, check_bn_mode
 from megaportraits_tpu_torch.models.gbase import Gbase
+from megaportraits_tpu_torch.utils.image import pil_bilinear_resize, read_image, write_image
 
 
 def load_image(path: str, size: Optional[Tuple[int, int]] = None,
                reference_normalize: bool = False) -> torch.Tensor:
-    """Image file -> [1, H, W, 3] float32 on the host, in [0, 1], or the
-    reference's mean/std-0.5 [-1, 1] transform with `reference_normalize`.
-    `size` is (width, height), resized bilinearly by PIL."""
-    from PIL import Image
-
-    img = Image.open(path).convert("RGB")
+    """Image file (PNG or baseline JPEG) -> [1, H, W, 3] float32 on the
+    host, in [0, 1], or the reference's mean/std-0.5 [-1, 1] transform with
+    `reference_normalize`. `size` is (width, height), resized as PIL's
+    BILINEAR resizes."""
+    img = read_image(path)
     if size is not None:
-        img = img.resize(size, Image.BILINEAR)
-    arr = np.asarray(img, dtype=np.float32) / 255.0
+        img = pil_bilinear_resize(img, size)
+    arr = img.astype(np.float32) / 255.0
     if reference_normalize:
         arr = (arr - 0.5) / 0.5
     return torch.from_numpy(arr)[None]
@@ -121,8 +122,6 @@ def main(cfg: Optional[Config] = None,
         if args.bn_mode:
             cfg.inference.bn_mode = args.bn_mode
         device = apply_platform_env(args.device)
-    from PIL import Image
-
     model = cfg.make_gbase(device=resolve_device(device), seed=0)
     path = cfg.inference.checkpoint_path
     if not restore_gbase(model, (path, path + "/export")):
@@ -132,7 +131,7 @@ def main(cfg: Optional[Config] = None,
         size=(cfg.data.train_width, cfg.data.train_height),
         reference_normalize=cfg.inference.reference_normalize,
         bn_mode=cfg.inference.bn_mode)
-    Image.fromarray(out).save(cfg.inference.output_image)
+    write_image(out, cfg.inference.output_image)
     print(f"wrote {cfg.inference.output_image}")
 
 

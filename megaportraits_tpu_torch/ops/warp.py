@@ -46,17 +46,38 @@ def grid_sample_3d(v: torch.Tensor, coords: torch.Tensor,
     return to_channels_last(out).to(v.dtype)
 
 
+def _reflect_about_pixel_edges(x: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    """Pixel coordinates reflected about -0.5 and size - 0.5, then clamped
+    into [0, size - 1] (JAX's ``_reflect_coords``)."""
+    span = size
+    x = torch.remainder(x + 0.5, 2.0 * span)
+    x = torch.where(x > span, 2.0 * span - x, x) - 0.5
+    return torch.minimum(torch.clamp(x, min=0.0), size - 1)
+
+
 def grid_sample_2d(v: torch.Tensor, coords: torch.Tensor,
                    align_corners: bool = False,
                    padding_mode: str = "border") -> torch.Tensor:
     """Bilinear sample of v [B,H,W,C] at coords [B,Ho,Wo,2] ((x, y) in
     [-1, 1]), torch's conventions: `padding_mode` 'border', 'reflection'
-    or 'zeros'. Float32 math, result in v's dtype. (With 'reflection' and
-    ``align_corners=True`` JAX's version reflects about the
-    ``align_corners=False`` bounds; this one follows torch.)"""
+    or 'zeros'. Float32 math, result in v's dtype.
+
+    With 'reflection' and ``align_corners=True`` this computes what JAX's
+    ``grid_sample_2d`` computes, which differs from torch there: the pixel
+    coordinate (``align_corners=True``'s) is reflected about -0.5 and
+    size - 0.5, the ``align_corners=False`` bounds, and clamped into the
+    image; torch reflects about 0 and size - 1. The sample at that pixel
+    coordinate is then taken with border padding."""
     if padding_mode not in ("border", "reflection", "zeros"):
         raise ValueError(f"unknown padding_mode: {padding_mode}")
-    out = F.grid_sample(to_channels_first(v.float()), coords.float(),
+    coords = coords.float()
+    if padding_mode == "reflection" and align_corners:
+        sizes = torch.tensor([v.shape[2], v.shape[1]], dtype=torch.float32,
+                             device=coords.device)
+        pixel = _reflect_about_pixel_edges((coords + 1.0) * 0.5 * (sizes - 1), sizes)
+        coords = pixel * 2.0 / (sizes - 1).clamp(min=1.0) - 1.0
+        padding_mode = "border"
+    out = F.grid_sample(to_channels_first(v.float()), coords,
                         mode="bilinear", padding_mode=padding_mode,
                         align_corners=align_corners)
     return to_channels_last(out).to(v.dtype)

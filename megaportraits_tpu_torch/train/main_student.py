@@ -59,7 +59,8 @@ def train_student(cfg: Config, max_steps: Optional[int] = None,
     seed = cfg.training.seed
     size = cfg.data.train_width
 
-    teacher = build_ghr(cfg.make_arch(), policy=policy, device=dev, seed=seed)
+    teacher = build_ghr(cfg.make_arch(), policy=policy, device=dev, seed=seed,
+                        use_chain_kernel=cfg.model.use_chain_kernel)
     if teacher_ckpt:
         CheckpointManager(teacher_ckpt).restore({"ghr_variables": teacher})
     distribute(teacher, mesh)

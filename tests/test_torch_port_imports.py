@@ -1,9 +1,10 @@
 """The port imports nothing of JAX, flax, optax, orbax or the JAX package.
 
 A fresh interpreter blocks ``jax``, ``flax``, ``optax`` and ``orbax`` (an
-import of any raises), and ``PIL`` and ``cv2``, which the machine with the
-card lacks and which the port imports only inside the functions that read
-or write files, and ``matplotlib`` and ``scipy``, which the port imports
+import of any raises), and ``PIL``, ``cv2`` and ``yaml``, which the machine
+with the card lacks (the port reads YAML and images without them, and
+imports cv2 only inside the functions that decode or write video files),
+and ``matplotlib`` and ``scipy``, which the port imports
 only inside the functions that draw or compute with them; it imports every
 module of ``megaportraits_tpu_torch`` and lists the modules of the JAX
 package that got loaded: there must be none.
@@ -20,7 +21,8 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
-for blocked in ("jax", "flax", "optax", "orbax", "PIL", "cv2", "matplotlib", "scipy"):
+for blocked in ("jax", "flax", "optax", "orbax", "PIL", "cv2", "yaml", "matplotlib",
+                "scipy"):
     sys.modules[blocked] = None
 import megaportraits_tpu_torch as pkg
 names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -59,6 +61,8 @@ def test_port_imports_nothing_of_jax():
                  "megaportraits_tpu_torch.losses.perceptual",
                  "megaportraits_tpu_torch.models.discriminator",
                  "megaportraits_tpu_torch.core.config",
+                 "megaportraits_tpu_torch.core.yaml_subset",
+                 "megaportraits_tpu_torch.utils.jpeg",
                  "megaportraits_tpu_torch.utils.profile_drive",
                  "megaportraits_tpu_torch.ops.warp",
                  "megaportraits_tpu_torch.ops.resize",

@@ -3,11 +3,22 @@
 and ``utils/image.save_image``, against the JAX package.
 
 TINY Gbase, FP32, 64x64, the same numpy-drawn weights on both sides
-(bridged), PNG inputs of 80x80 that both resize with PIL. Tolerances:
+(bridged), PNG and JPEG inputs of 80x80 that JAX reads and resizes with
+PIL (the port without it), and driving frames as printf patterns of PNGs,
+starting at index 0 and at 1, that JAX reads with cv2 (the port without
+it). The port's side of those cases runs with ``yaml``, ``PIL`` and
+``cv2`` blocked in ``sys.modules``: the commands go through
+``python -m megaportraits_tpu_torch`` with a YAML config. Tolerances:
   * ``inference_base``'s uint8 frames differ by at most 1 level (measured
     at most 1): the float32 outputs agree to about 1e-5 (the Gbase tests),
     so a value near a rounding edge may land on either side;
-  * ``reenact_video``: the same number of frames, and the frames decoded
+  * ``reenact_video`` on a frame pattern: the same number of frames, and
+    each frame the port writes (PNG) within 1 level of the frame JAX
+    hands its cv2 writer (measured at most 1), for the same reason;
+  * the port's ``infer`` command: its PNG equal to the in-process
+    ``inference_base`` on the same checkpoint, bit for bit, and its JPEG
+    the bytes PIL writes for those pixels;
+  * ``reenact_video`` on an mp4: the same number of frames, and the frames decoded
     from both mp4 files within 1 level on average and 16 at most (measured
     0 and 0: both packages wrote the same uint8 frames, and the codec is
     deterministic). A one-level difference in a frame, as inference_base
@@ -15,6 +26,7 @@ TINY Gbase, FP32, 64x64, the same numpy-drawn weights on both sides
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -37,7 +49,7 @@ from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
 from megaportraits_tpu_torch.core.dtypes import FP32_POLICY as TP
 from megaportraits_tpu_torch.infer import inference, video
 from megaportraits_tpu_torch.models.gbase import Gbase
-from megaportraits_tpu_torch.utils.image import save_image
+from megaportraits_tpu_torch.utils.image import read_image, save_image
 
 from torch_port_utils import bridged, numpy_init
 
@@ -189,3 +201,196 @@ def test_save_image_matches_jax(case, shape):
     assert Image.open(case["dir"] / "img_port.png").mode == "RGB"
     np.testing.assert_array_equal(np.asarray(Image.open(case["dir"] / "img_port.png")),
                                   np.asarray(Image.open(case["dir"] / "img_jax.png")))
+
+
+# -- the commands without PyYAML, PIL or cv2 ------------------------------------------
+
+
+def _jpg(path, seed):
+    from PIL import Image
+
+    coarse = np.random.default_rng(seed).integers(0, 256, (10, 10, 3), np.uint8)
+    Image.fromarray(coarse).resize((FILE_SIZE, FILE_SIZE), Image.BICUBIC).save(
+        path, quality=90)
+    return str(path)
+
+
+def _block_host_libraries(monkeypatch):
+    """What the card's machine lacks: an import of any of them raises."""
+    for name in ("yaml", "PIL", "cv2"):
+        monkeypatch.setitem(sys.modules, name, None)
+
+
+def _run_cli(monkeypatch, *argv):
+    from megaportraits_tpu_torch.__main__ import main
+
+    monkeypatch.setattr(sys, "argv", list(sys.argv))
+    assert main(list(argv)) == 0
+
+
+@pytest.fixture(scope="module")
+def jpeg_inputs(case):
+    return dict(source=_jpg(case["dir"] / "source.jpg", 12),
+                driving=_jpg(case["dir"] / "driving.jpg", 13))
+
+
+@pytest.mark.parametrize("kind", ["png", "jpg"])
+def test_inference_base_matches_jax_on_png_and_jpeg(case, jpeg_inputs, kind):
+    src, drv = ((case["source"], case["driving"]) if kind == "png"
+                else (jpeg_inputs["source"], jpeg_inputs["driving"]))
+    want = jinf.inference_base(src, drv, case["v"], case["jmod"], size=(SIZE, SIZE))
+    got = inference.inference_base(src, drv, _model(case), size=(SIZE, SIZE))
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    np.testing.assert_array_equal(
+        inference.load_image(src, (SIZE, SIZE)).numpy(), np.asarray(jinf.load_image(src, (SIZE, SIZE))))
+
+
+@pytest.mark.parametrize("kind,out_ext", [("png", ".png"), ("jpg", ".jpg"), ("png", ".jpg")])
+def test_infer_command_from_yaml_without_host_libraries(case, jpeg_inputs, kind, out_ext,
+                                                        monkeypatch, tmp_path):
+    """``python -m megaportraits_tpu_torch infer --config x.yaml`` with
+    PyYAML, PIL and cv2 blocked, and ``model.use_chain_kernel: true``: the
+    trunk goes through K2's wrapper once (its plain version on the CPU),
+    the PNG is the in-process result bit for bit, and the JPEG is the bytes
+    PIL writes for it (what JAX's command writes)."""
+    from PIL import Image
+
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain as rc
+
+    src, drv = ((case["source"], case["driving"]) if kind == "png"
+                else (jpeg_inputs["source"], jpeg_inputs["driving"]))
+    root = tmp_path / "ckpt"
+    CheckpointManager(str(root)).save(1, {"g_variables": _model(case)})
+    want = inference.inference_base(src, drv, _model(case), size=(SIZE, SIZE))
+    pil_jpeg = tmp_path / "pil.jpg"
+    Image.fromarray(want).save(pil_jpeg)
+    out = tmp_path / f"out{out_ext}"
+    config = tmp_path / "infer.yaml"
+    config.write_text(
+        f"data:\n  train_width: {SIZE}\n  train_height: {SIZE}\n"
+        "model:\n  arch: tiny\n  use_bf16: false\n  use_chain_kernel: true\n"
+        f"inference:\n  checkpoint_path: '{root}'\n  source_image: {src}\n"
+        f"  driving_image: \"{drv}\"\n  output_image: {out}  # the result\n")
+    calls = []
+    plain = rc.resblock_chain
+    monkeypatch.setattr(rc, "resblock_chain", lambda *a, **k: calls.append(1) or plain(*a, **k))
+    _block_host_libraries(monkeypatch)
+    _run_cli(monkeypatch, "infer", "--config", str(config), "--device", "cpu")
+    monkeypatch.undo()
+    assert len(calls) == 1
+    if out_ext == ".png":
+        np.testing.assert_array_equal(read_image(str(out)), want)
+    else:
+        assert out.read_bytes() == pil_jpeg.read_bytes()
+
+
+def _frames(directory, start, count, seed):
+    """PNG frames start..start+count-1 of a smooth moving picture, then a
+    gap and one more frame that a reader must not reach."""
+    import cv2
+
+    directory.mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed)
+    base = cv2.resize(rng.integers(0, 256, (10, 10, 3), np.uint8), (FILE_SIZE, FILE_SIZE),
+                      interpolation=cv2.INTER_CUBIC)
+    for i in range(start, start + count):
+        cv2.imwrite(str(directory / f"f_{i:04d}.png"), np.roll(base, 3 * i, axis=1))
+    cv2.imwrite(str(directory / f"f_{start + count + 1:04d}.png"), base)
+    return str(directory / "f_%04d.png")
+
+
+class _RecordingWriter:
+    """Stands in for cv2.VideoWriter in JAX's reenact: keeps the frames."""
+
+    frames = []
+
+    def __init__(self, *args):
+        pass
+
+    def write(self, frame):
+        _RecordingWriter.frames.append(frame[..., ::-1].copy())  # BGR -> RGB
+
+    def release(self):
+        pass
+
+
+@pytest.mark.parametrize("start", [0, 1])
+@pytest.mark.parametrize("source", ["png", "jpg"])
+def test_reenact_frame_pattern_matches_jax(case, jpeg_inputs, start, source, monkeypatch,
+                                           tmp_path):
+    """JAX reads the pattern with cv2.VideoCapture (its writer recorded);
+    the port, with PyYAML, PIL and cv2 blocked, reads the same pattern and
+    writes a PNG pattern numbered from 1 through the reenact command."""
+    import cv2
+
+    src = case["source"] if source == "png" else jpeg_inputs["source"]
+    pattern = _frames(tmp_path / "frames", start, VIDEO_FRAMES, seed=20 + start)
+    _RecordingWriter.frames = []
+    monkeypatch.setattr(cv2, "VideoWriter", _RecordingWriter)
+    n_j = jvideo.reenact_video(src, pattern, str(tmp_path / "unused.mp4"), case["v"],
+                               size=SIZE, model=case["jmod"])
+    monkeypatch.undo()
+    want = _RecordingWriter.frames
+    assert n_j == len(want) == VIDEO_FRAMES
+
+    root = tmp_path / "ckpt"
+    CheckpointManager(str(root)).save(1, {"g_variables": _model(case)})
+    config = tmp_path / "serve.yaml"
+    config.write_text(f"model: {{arch: tiny, use_bf16: false}}\n"
+                      f"inference: {{checkpoint_path: '{root}'}}\n")
+    out = tmp_path / "out" / "r_%03d.png"
+    _block_host_libraries(monkeypatch)
+    _run_cli(monkeypatch, "reenact", "--config", str(config), "--source", src,
+             "--driving", pattern, "--output", str(out), "--size", str(SIZE),
+             "--device", "cpu")
+    monkeypatch.undo()
+    written = sorted(os.listdir(tmp_path / "out"))
+    assert written == [f"r_{i:03d}.png" for i in range(1, VIDEO_FRAMES + 1)]
+    for i, frame in enumerate(want):
+        got = read_image(str(out).replace("%03d", f"{i + 1:03d}"))
+        assert np.abs(got.astype(int) - frame.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("first,count,expected", [(0, 3, 3), (4, 2, 2), (5, 2, 0),
+                                                  (2, 0, 1)])
+def test_frame_pattern_reads_where_cv2_reads(first, count, expected, tmp_path):
+    """The first index of 0 to 4 that exists, then every frame to the first
+    missing one: the frames cv2.VideoCapture gives, in order. (Frames
+    first..first+count-1 exist, then a gap, then one more: with no frame
+    before it, that one is the first, if its index is at most 4.)"""
+    import cv2
+
+    d = tmp_path / "p"
+    d.mkdir()
+    rng = np.random.default_rng(first)
+    for i in list(range(first, first + count)) + [first + count + 1]:
+        cv2.imwrite(str(d / f"{i}.png"), rng.integers(0, 256, (6, 9, 3), np.uint8))
+    cap = cv2.VideoCapture(str(d / "%d.png"))
+    want = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        want.append(frame[..., ::-1])
+    cap.release()
+    frames, fps = video.read_frames(str(d / "%d.png"))
+    got = list(frames)
+    assert len(got) == len(want) == expected
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert fps == 25.0
+
+
+def test_reenact_mp4_without_cv2_raises_before_the_model(case, monkeypatch, tmp_path):
+    """Without cv2, an .mp4 input or output raises naming cv2 and the
+    pattern form, before any model is built."""
+    def no_model(*args, **kwargs):
+        raise AssertionError("the model was built")
+
+    monkeypatch.setattr(tconfig.Config, "make_gbase", no_model)
+    _block_host_libraries(monkeypatch)
+    for driving, output in (("in.mp4", "out/%04d.png"), ("in/%04d.png", "out.mp4")):
+        with pytest.raises(RuntimeError, match=r"needs cv2.*frames/%04d\.png"):
+            _run_cli(monkeypatch, "reenact", "--source", case["source"], "--driving",
+                     str(tmp_path / driving), "--output", str(tmp_path / output),
+                     "--device", "cpu")

@@ -60,7 +60,7 @@ def _rand(seed, shape, lo=0.0, hi=1.0):
 
 @pytest.mark.parametrize("padding_mode,align_corners", [
     ("zeros", False), ("zeros", True), ("border", False), ("border", True),
-    ("reflection", False)])
+    ("reflection", False), ("reflection", True)])
 def test_grid_sample_2d_matches_jax(padding_mode, align_corners):
     v = _rand(0, (2, 9, 13, 4))
     coords = _rand(1, (2, 7, 5, 2), -1.6, 1.6)
