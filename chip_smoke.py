@@ -93,7 +93,12 @@ Phases, in order; any failure exits non-zero:
        with model.use_chain_kernel: true, on the stage-1 export with its
        BatchNorm statistics calibrated: `infer` PNG in and .png out, JPEG
        in and .jpg out (K2 once each; the PNG the in-process
-       inference_base bit for bit, the JPEG its bytes), `infer` again as a
+       inference_base bit for bit, the JPEG its bytes), `infer` from a
+       progressive JPEG source and a palette PNG driving frame (K2 once,
+       the in-process result bit for bit), the port's read_image of
+       progressive JPEGs at 512 and 1024, a palette PNG and a 16-bit PNG
+       that PIL wrote in a subprocess, each PIL's convert("RGB") bit for
+       bit, with its seconds; `infer` again as a
        subprocess (a fresh interpreter: its PNG the same), `reenact` on 8
        PNG frames of a pattern into an output pattern (K2 8 times; the
        frames within 1/255 of a ReenactmentSession's on the same decoded
@@ -121,7 +126,18 @@ Phases, in order; any failure exits non-zero:
      (mesh_shape {data: 1}) with K2 in the teacher (4 launches a step,
      counted in the JSON line), its checkpoint restored into a plain
      Student bit for bit;
-  16. the pretrained bundle and eval (phase_bundle_eval): synthetic
+  16. the scripts/ tools (phase_scripts), each through its main() in a
+     temporary working directory with $TMPDIR in it: check_device (every
+     kernel builds), train_smoke (FULL 512, batch 2, 3 steps after the
+     first; finite metrics that move, each step's CUDA-event ms),
+     overfit (FULL 256 on 2 clips in the npz cache, --pool 2,
+     --eval-every 2, --export: loss_G finite and moving, the export at
+     the best held-out step and restoring bit for bit, no kernel) and
+     validate_student (256, 3 steps, behind that export, with
+     --use-chain-kernel --teacher-bn-mode running: K2 once a sample of
+     each step and each avatar's held-out frame, finite moving losses,
+     the PNGs and RESULTS.txt); each command's seconds and launches;
+  17. the pretrained bundle and eval (phase_bundle_eval): synthetic
      original .pth files at their real sizes (2DFAN-4, InceptionResnetV1,
      VGG16 with the LPIPS heads, VGG19, resnet18, 6DRepNet) made from
      seeded port modules through the converter's tables, converted,
@@ -134,14 +150,14 @@ Phases, in order; any failure exits non-zero:
      InceptionResnetV1 at 160; the graft report against the FULL leaf
      counts; PerceptualLoss(use_vggface=True) forward + backward at 512,
      batch 2, and its peak memory;
-  17. the stage-1 driver with use_gaze_loss (phase_driver_gaze): 512, batch
+  18. the stage-1 driver with use_gaze_loss (phase_driver_gaze): 512, batch
      2, 2 steps, pretrained_path at the bundle: the FAN provider
      installed, gaze_masks on every batch with their coverage, loss_G_gaze
      finite, the masks' ms a batch, the prefetch wait, steps/s;
-  18. one JSON line listing every kernel with its numbers, the launches
-     summed over the driven paths (phases 5, 7, 10 and 12 to 17, the
+  19. one JSON line listing every kernel with its numbers, the launches
+     summed over the driven paths (phases 5, 7, 10 and 12 to 18, the
      serving commands of phase 14 included);
-  19. last line: {"ok": true, "device": {...}}.
+  20. last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 5 samples after 2 warm-ups (a training
 step: of 3 after 1); the kernels, their plain versions and the library
@@ -155,6 +171,7 @@ import ast
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1903,6 +1920,33 @@ CLI_SESSION_LEVELS = 1  # reenact's frames against the session's, in levels (1/2
 
 HOST_LIBRARIES = ("yaml", "PIL", "cv2")  # what the port's commands must not need
 
+# A fresh interpreter writes, with PIL, the files a user's tools write that
+# the port's readers must take as PIL does (a progressive JPEG at 512 and
+# 1024, a palette PNG, a 16-bit gray PNG), and PIL's convert("RGB") of each
+# as .npy beside it; this process never imports PIL.
+PIL_INPUTS = r"""
+import sys
+import numpy as np
+import PIL
+from PIL import Image
+d = sys.argv[1]
+src, drv = np.load(d + "/source.npy"), np.load(d + "/driving.npy")
+big = np.repeat(np.repeat(src, 2, axis=0), 2, axis=1)
+Image.fromarray(src).save(d + "/source_progressive.jpg", progressive=True, quality=90,
+                          optimize=True)
+Image.fromarray(big).save(d + "/big_progressive.jpg", progressive=True, quality=90,
+                          optimize=True)
+Image.fromarray(drv).convert("P", palette=Image.ADAPTIVE, colors=256).save(
+    d + "/driving_palette.png")
+Image.fromarray((src[..., 0].astype(np.uint16) * 3)).save(d + "/gray16.png")
+for name in ("source_progressive.jpg", "big_progressive.jpg", "driving_palette.png",
+             "gray16.png"):
+    im = Image.open(d + "/" + name)
+    np.save(d + "/" + name + ".npy", np.asarray(im.convert("RGB")))
+    print(name, im.mode, im.size)
+print("PIL", PIL.__version__)
+"""
+
 
 class Blocked:
     """For the length of a `with`, an import of any of `names` raises
@@ -1987,9 +2031,15 @@ def phase_cli(torch, dev, smi, work, size=None, frames=CLI_FRAMES):
     checkpoint of its own (after a few steps the running statistics are
     still near their start, and the frames would saturate):
       * `infer` in process: PNG source and driving in, .png out; JPEG in,
-        .jpg out. K2 once each; the PNG equal to the in-process
+        .jpg out; a progressive JPEG source and a palette PNG driving frame
+        in, .png out. K2 once each; the PNGs equal to the in-process
         inference_base of the same checkpoint bit for bit, the JPEG the
         bytes of that result encoded (PIL's default JPEG);
+      * the files PIL writes that the port reads as PIL does, written by
+        PIL in a subprocess (PIL_INPUTS): a progressive JPEG at `size` and
+        at twice it, a palette PNG and a 16-bit gray PNG, each read by
+        read_image (yaml, PIL and cv2 blocked) equal to PIL's
+        convert("RGB") bit for bit, with its seconds;
       * `infer` as a subprocess (a fresh interpreter, the default device):
         its PNG equal to the in-process one;
       * `reenact`: `frames` PNG frames of a pattern (pred_frame_%04d.png
@@ -2049,6 +2099,29 @@ def phase_cli(torch, dev, smi, work, size=None, frames=CLI_FRAMES):
         print(f"cli: JPEG (quality 75, 4:2:0) of {arr.shape[1]}x{arr.shape[0]} ({len(data)} "
               f"bytes): encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s an image (host "
               "clock; the decoder walks the Huffman bits in Python)")
+    for name, arr in (("source", source), ("driving", driving)):
+        np.save(cli_dir / f"{name}.npy", arr)
+    proc = subprocess.run([sys.executable, "-c", PIL_INPUTS, str(cli_dir)], capture_output=True,
+                          text=True, timeout=300)
+    print(f"cli: PIL wrote a progressive JPEG at {size} and {2 * size}, a palette PNG and a "
+          f"16-bit gray PNG (a subprocess, rc {proc.returncode}): "
+          f"{proc.stdout.strip().splitlines()}{' ' + proc.stderr[-1500:] if proc.returncode else ''}")
+    check(proc.returncode == 0, "PIL could not write the progressive, palette and 16-bit inputs")
+    for name in ("source_progressive.jpg", "big_progressive.jpg", "driving_palette.png",
+                 "gray16.png"):
+        path = str(cli_dir / name)
+        t0 = time.perf_counter()
+        with Blocked():
+            got = image.read_image(path)
+        took = time.perf_counter() - t0
+        want = np.load(path + ".npy")
+        same = got.shape == want.shape and np.array_equal(got, want)
+        print(f"cli: read_image of {name} ({want.shape[1]}x{want.shape[0]}, "
+              f"{Path(path).stat().st_size} bytes) in {took:.3f} s (host clock): PIL's "
+              f"convert('RGB') bit for bit: {same}")
+        check(same, f"{name} decodes otherwise than PIL's convert('RGB')")
+    inputs["source", "mixed"] = str(cli_dir / "source_progressive.jpg")
+    inputs["driving", "mixed"] = str(cli_dir / "driving_palette.png")
 
     serve = str(cli_dir / "serve")
     serve_yaml = write_yaml(cli_dir / "serve.yaml", {
@@ -2082,7 +2155,7 @@ def phase_cli(torch, dev, smi, work, size=None, frames=CLI_FRAMES):
                     (Config, {"make_gbase": "model build"}),
                     (Gbase, {"generate": "device compute"})]
     served, measured = {}, []
-    for kind, ext in (("png", ".png"), ("jpg", ".jpg")):
+    for kind, ext in (("png", ".png"), ("jpg", ".jpg"), ("mixed", ".png")):
         out = str(cli_dir / f"infer_{kind}{ext}")
         path = write_yaml(cli_dir / f"infer_{kind}.yaml", {
             "data": {"train_width": size, "train_height": size},
@@ -2260,6 +2333,161 @@ def phase_drivers(torch, dev, smi, bare):
             os.chdir(here)
     return [base["launches"], cli["launches"], hr["launches"], student["launches"],
             distributed["launches"]]
+
+
+SCRIPT_SIZE = 256  # overfit and validate_student, as their defaults
+SCRIPT_STEPS = 4  # overfit: evaluated and exported every 2
+SCRIPT_STUDENT_STEPS = 3
+SMOKE_STEPS = 3  # train_smoke, after its first step
+
+
+def script_losses(pattern, text):
+    return [float(x) for x in re.findall(pattern, text)]
+
+
+def finite_and_moving(name, first, last):
+    ok = math.isfinite(first) and math.isfinite(last) and first != last
+    print(f"scripts {name}: loss {first!r} -> {last!r} (finite and moving: {ok})")
+    check(ok, f"{name}'s loss is not finite or does not move: {first} -> {last}")
+
+
+def run_tool(torch, dev, smi, name, fn):
+    """fn() with its launches counted from 0, its stdout kept and its host
+    seconds; prints the line of numbers."""
+    import contextlib
+
+    tee = Tee(sys.stdout)
+    reset_counts()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        out = fn()
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    print(f"scripts {name}: {seconds:.3f} s (host clock, set-up included); launches "
+          f"{launches} | {smi}")
+    return out, "".join(tee.text), launches, seconds
+
+
+def phase_scripts(torch, dev, smi, work, size=SCRIPT_SIZE, smoke_size=TRAIN_SIZE,
+                  smoke_batch=TRAIN_BATCH):
+    """The repo's scripts/ tools on the port, each through its main() as
+    `python -m megaportraits_tpu_torch.scripts.<name>` calls it, in `work`
+    (output_images/ lands there) with $TMPDIR at work/tmp (the tools' npz
+    cache and clip lists):
+      * check_device: exit 0, the card and every kernel built;
+      * train_smoke at `smoke_size`, `smoke_batch`, SMOKE_STEPS steps after
+        the first: finite metrics that move, each step's CUDA-event ms;
+      * overfit at `size` on 2 clips written into the npz cache, --pool 2,
+        --eval-every 2, --export: finite loss_G that moves, the export at
+        the best held-out step, restored into a fresh Gbase bit for bit;
+        no kernel (train mode, batch-statistics evaluation);
+      * validate_student at `size` behind that export with
+        --use-chain-kernel --teacher-bn-mode running: the teacher's trunk
+        on K2 once a sample (a step's batch and each avatar's held-out
+        frame), finite distillation losses that move, the side-by-side
+        PNGs and RESULTS.txt.
+    The clips' ids name empty .mp4 files in the clip directory
+    (validate_student lists clips by their .mp4; the cache is read first,
+    so no video is decoded). Returns the launches of all four."""
+    import tempfile
+
+    from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
+    from megaportraits_tpu_torch.scripts import check_device, overfit, train_smoke
+    from megaportraits_tpu_torch.scripts import validate_student
+
+    tmp, clips = work / "tmp", work / "script_clips"
+    cache = tmp / "megaportraits_cache"
+    cache.mkdir(parents=True)
+    clips.mkdir()
+    write_clips(torch, dev, cache, (size,))
+    meta = json.loads((cache / "meta.json").read_text())
+    (clips / "overfit.json").write_text(json.dumps(meta))
+    for vid in meta["clips"]:
+        (clips / f"{vid}.mp4").write_bytes(b"")
+    device = ["--device", str(dev)]
+    measured = []
+    with Patched(tempfile, tempdir=str(tmp)):
+        if dev.type == "cuda":
+            rc, text, launches, _ = run_tool(torch, dev, smi, "check_device",
+                                             lambda: check_device.main([]))
+            check(rc == 0, f"check_device returned {rc}")
+            check(text.count(": builds") == 3, f"check_device: {text}")
+
+        result, _, launches, seconds = run_tool(
+            torch, dev, smi, f"train_smoke {smoke_size} {smoke_batch} {SMOKE_STEPS}",
+            lambda: train_smoke.main([str(smoke_size), str(smoke_batch), str(SMOKE_STEPS)]
+                                     + device))
+        measured.append(launches)
+        ms = [x * 1e3 for x in result["step_s"]]
+        print(f"scripts train_smoke: first step {result['first_step_s'] * 1e3:.3f} ms, then "
+              f"{[round(x, 3) for x in ms]} ms (CUDA events) = "
+              f"{len(ms) / sum(result['step_s']):.3f} steps/s at {smoke_size}, batch "
+              f"{smoke_batch} | {smi}")
+        check(all(math.isfinite(v) for v in result["metrics"].values()),
+              f"train_smoke metrics {result['metrics']}")
+        finite_and_moving("train_smoke loss_G", result["metrics_first"]["loss_G"],
+                          result["metrics"]["loss_G"])
+        check(all(v == 0 for v in launches.values()), f"kernels in training: {launches}")
+
+        export = work / "script_export"
+        result, text, launches, seconds = run_tool(
+            torch, dev, smi, f"overfit {size}",
+            lambda: overfit.main(["--size", str(size), "--steps", str(SCRIPT_STEPS),
+                                  "--batch", "2", "--video-dir", str(clips), "--json-file",
+                                  str(clips / "overfit.json"), "--pool", "2",
+                                  "--eval-every", "2", "--log-every", "2", "--export",
+                                  str(export)] + device))
+        measured.append(launches)
+        print(f"scripts overfit: {SCRIPT_STEPS / seconds:.3f} steps/s over the whole "
+              f"command (host clock: caches, model build, pool, {SCRIPT_STEPS // 2} "
+              f"held-out evaluations and exports included); best held-out "
+              f"{result['best_psnr']:.3f} dB at step {result['best_step']}, exported step "
+              f"{result['export_step']}")
+        finite_and_moving("overfit loss_G", result["first_loss_G"], result["final_loss_G"])
+        check(all(v == 0 for v in launches.values()), f"kernels in overfit: {launches}")
+        check(result["export_step"] == result["best_step"] == step_dirs(export)[-1],
+              f"overfit exported {result['export_step']}, best {result['best_step']}, "
+              f"on disk {step_dirs(export)}")
+        saved = torch.load(export / str(result["export_step"]) / "checkpoint.pt",
+                           weights_only=True)["g_variables"]
+        fresh = overfit.Config().make_gbase(device=dev, seed=7)
+        CheckpointManager(str(export)).restore({"g_variables": fresh})
+        same = same_weights(torch, fresh, saved)
+        print(f"scripts overfit: the export restores into a fresh Gbase bit for bit: {same}")
+        check(same, "overfit's export does not restore bit for bit")
+        del fresh, saved
+
+        out = work / "student_quality"
+        avatars = len(meta["clips"])
+        rc, text, launches, seconds = run_tool(
+            torch, dev, smi, f"validate_student {size}",
+            lambda: validate_student.main([
+                "--size", str(size), "--steps", str(SCRIPT_STUDENT_STEPS), "--batch", "2",
+                "--num-avatars", str(avatars), "--video-dir", str(clips), "--gbase-ckpt",
+                str(export), "--use-chain-kernel", "--teacher-bn-mode", "running",
+                "--out", str(out)] + device))
+        measured.append(launches)
+        check(rc == 0, f"validate_student returned {rc}")
+        losses = script_losses(r"distill MSE (\S+)", text)
+        check(len(losses) == 2, f"validate_student printed {losses}")
+        finite_and_moving("validate_student distill MSE", losses[0], losses[-1])
+        scores = script_losses(r"held-out MSE (\S+)", text) + script_losses(r"LPIPS (\S+)",
+                                                                            text)
+        check(len(scores) == 2 * avatars and all(math.isfinite(x) for x in scores),
+              f"validate_student scores {scores}")
+        written = sorted(p.name for p in out.iterdir())
+        check(written == ["RESULTS.txt"] + [f"avatar{a}_teacher_vs_student.png"
+                                             for a in range(avatars)], f"wrote {written}")
+        print(f"scripts validate_student: {SCRIPT_STUDENT_STEPS / seconds:.3f} steps/s over "
+              f"the whole command (host clock: model builds, the teacher's restore, "
+              f"{avatars} held-out frames with LPIPS included); {written}")
+        if dev.type == "cuda":
+            check_trunk_launches("validate_student's teacher", launches,
+                                 SCRIPT_STUDENT_STEPS * 2 + avatars, TRUNK_BLOCKS)
+    return dict(launches={k: sum(m[k] for m in measured) for k in measured[0]})
 
 
 # phase_bundle_eval: a synthetic pretrained bundle at the real sizes, the
@@ -2630,6 +2858,14 @@ def main():
     torch.cuda.empty_cache()
     import tempfile
 
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            paths.append(phase_scripts(torch, dev, smi, Path(tmp))["launches"])
+        finally:
+            os.chdir(here)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         result = phase_bundle_eval(torch, dev, smi, work)
@@ -2642,7 +2878,8 @@ def main():
     # three drivers (serving the stage-1 export included), the serving
     # commands (infer twice and reenact, in this process), the stage-3
     # driver under the process group, the frames that eval scores and the
-    # stage-1 driver with the gaze term.
+    # stage-1 driver with the gaze term, and the scripts/ tools
+    # (validate_student's teacher).
     launches = {k: sum(p.get(k, 0) for p in paths) for k in launches}
     print(f"launches over every driven path: {launches}")
 

@@ -14,6 +14,11 @@ are booleans, ``~``/``null``/an empty value are None, ints take ``0x``,
 ``0b``, a leading ``0`` (octal), underscores and ``a:b`` (base 60), and a
 float needs a dot: ``1.0e-5`` is a float but ``1e-5`` is a string.
 
+As in PyYAML, one leading byte-order mark (U+FEFF) is dropped, a tab
+outside a quoted scalar or a comment raises, a ``- `` entry cannot be the
+value of a key on its line, and a document-end marker ``...`` may close the
+document (only blank lines, comments and further ``...`` may follow it).
+
 Anchors, aliases, tags, block scalars (``|``, ``>``), complex keys,
 directives, several documents, a mapping inside a sequence, dates and a
 key given twice raise ``ValueError`` naming the line: nothing that this
@@ -333,17 +338,56 @@ def _put(mapping: dict, key: Any, value: Any, lineno: int) -> None:
 # -- block structure --------------------------------------------------------------
 
 
+def _check_tabs(lines: List[str]) -> None:
+    """Raise on a tab outside a quoted scalar and a comment, where PyYAML's
+    scanner finds "a character that cannot start any token". A quote opens
+    a quoted scalar where a node may start: at the start of a line, after
+    '[', '{' or ',', or after ':', '-' or '?' and a space."""
+    quote = None
+    for lineno, line in enumerate(lines, 1):
+        prev, spaced, i = None, False, 0
+        while i < len(line):
+            ch = line[i]
+            if quote is not None:
+                if ch == "\\" and quote == '"':
+                    i += 2
+                    continue
+                if ch == quote:
+                    if quote == "'" and line[i + 1:i + 2] == "'":
+                        i += 2
+                        continue
+                    quote, prev, spaced = None, ch, False
+                i += 1
+                continue
+            if ch == "\t":
+                raise _Error(f"line {lineno}: tabs outside quoted scalars and comments "
+                             "are not supported (PyYAML rejects them)")
+            if ch == "#" and (i == 0 or line[i - 1] == " "):
+                break
+            if ch == " ":
+                spaced = True
+            else:
+                if ch in "'\"" and (prev is None or prev in "[{," or
+                                    (prev in ":-?" and spaced)):
+                    quote = ch
+                prev, spaced = ch, False
+            i += 1
+
+
+def _is_end_marker(raw: str) -> bool:
+    return raw.rstrip("\r")[:3] == "..." and raw.rstrip("\r")[3:4] in ("", " ")
+
+
 class _Reader:
     def __init__(self, text: str):
         self.raw = text.split("\n")
+        _check_tabs(self.raw)
         self.i = 0
 
     # Lines are (line number from 1, indent, content without the indent).
     def line(self, i: int) -> Tuple[int, int, str]:
         raw = self.raw[i].rstrip("\r")
         content = raw.lstrip(" ")
-        if content.startswith("\t"):
-            raise _Error(f"line {i + 1}: tabs in indentation are not supported")
         return i + 1, len(raw) - len(content), content.rstrip(" \t")
 
     def is_blank(self, i: int) -> bool:
@@ -356,14 +400,19 @@ class _Reader:
         return i if i < len(self.raw) else None
 
     def document(self) -> Any:
+        self.close_at_end_marker()
         i = self.next_content(0)
+        started = False
         if i is not None:
             lineno, indent, content = self.line(i)
             if content.startswith("%"):
                 raise _Error(f"line {lineno}: directives are not supported")
             if content == "---" and indent == 0:
-                i = self.next_content(i + 1)
+                i, started = self.next_content(i + 1), True
         if i is None:
+            if self.end_line is not None and not started:
+                raise _Error(f"line {self.end_line}: a document end marker ('...') "
+                             "with no document before it")
             return None
         value, i = self.node(i, -1)
         i = self.next_content(i)
@@ -372,6 +421,23 @@ class _Reader:
             _check_marker(lineno, indent, content)
             raise _Error(f"line {lineno}: unexpected content {content!r}")
         return value
+
+    def close_at_end_marker(self) -> None:
+        """Cut the lines at the first document end marker '...', after
+        which only blank lines, comments and more markers may come."""
+        self.end_line = None
+        for k, raw in enumerate(self.raw):
+            if _is_end_marker(raw):
+                self.end_line = k + 1
+                break
+        if self.end_line is None:
+            return
+        for k in range(self.end_line, len(self.raw)):
+            if self.is_blank(k) or _is_end_marker(self.raw[k]):
+                continue
+            raise _Error(f"line {k + 1}: several documents (content after the "
+                         "document end marker '...') are not supported")
+        self.raw = self.raw[:self.end_line - 1]
 
     def node(self, i: int, parent_indent: int) -> Tuple[Any, int]:
         """The block node whose first line is line i (a content line)."""
@@ -408,6 +474,9 @@ class _Reader:
                 else:
                     value, i = None, i + 1
             else:
+                if _is_seq_entry(rest):
+                    raise _Error(f"line {lineno}: sequence entries are not allowed here "
+                                 "(a '- ' entry as the value on its key's line)")
                 value, i = self.inline(i, rest, indent)
             _put(out, key, value, lineno)
             j = self.next_content(i)
@@ -583,7 +652,9 @@ def _key_end_plain(content: str) -> Optional[int]:
 def load(text: str, source: str = "<yaml>") -> Any:
     """The value of the YAML document `text`, as ``yaml.safe_load`` gives it.
     Raises ValueError("<source>: line N: ...") on what the reader does not
-    support."""
+    support. One leading byte-order mark is dropped, as PyYAML drops it."""
+    if text.startswith("\ufeff"):
+        text = text[1:]
     try:
         return _Reader(text).document()
     except _Error as e:

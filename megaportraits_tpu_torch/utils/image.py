@@ -6,11 +6,14 @@ neither.
 Files:
   * ``read_image`` gives what PIL's ``Image.open(path).convert("RGB")``
     gives, as uint8 [H, W, 3], choosing the format by the file's first
-    bytes: PNG (8-bit, non-interlaced gray, RGB, gray-alpha or RGBA, all
-    five row filters; gray repeated on three channels, alpha dropped) or
-    baseline JPEG (``utils/jpeg.py``). Any other file raises
-    ``ValueError`` naming its format. ``load_image`` is the same as
-    float32 in [0, 1].
+    bytes: PNG (every colour type and bit depth, plain or Adam7
+    interlaced, all five row filters) or JPEG (baseline, progressive or
+    CMYK; ``utils/jpeg.py``). Any other file raises ``ValueError`` naming
+    its format. ``load_image`` is the same as float32 in [0, 1]. PIL's
+    rules for the PNG samples are kept: gray repeated on three channels,
+    alpha and tRNS dropped, gray of 1, 2 or 4 bits scaled to 0..255, a
+    palette index past PLTE black, 16-bit gray clipped to 255 (PIL's
+    ``I;16`` mode) and every other 16-bit sample cut to its high byte.
   * ``write_image`` writes uint8 RGB by the path's extension: ``.png``
     (``zlib``, filter 0 on every row; the pixels PIL writes) or ``.jpg`` /
     ``.jpeg`` (PIL's default JPEG, byte for byte). ``save_image`` takes
@@ -86,8 +89,12 @@ def write_image(rgb: np.ndarray, path: str) -> None:
         f.write(data)
 
 
-# Colour type -> channels, for the 8-bit colour types load_image reads.
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# Colour type -> channels, and the bit depths the PNG standard allows it.
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# The seven Adam7 passes: (first column, first row, column step, row step).
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+         (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
@@ -152,17 +159,61 @@ def _unfilter_diagonals(rows: np.ndarray, h: int, row_bytes: int, bpp: int) -> n
     return diag[x + y + 2, y + 1].astype(np.uint8).reshape(h, row_bytes)
 
 
-def read_png(path: str) -> Tuple[np.ndarray, int]:
-    """uint8 [H, W, channels] and the PNG colour type of an 8-bit,
-    non-interlaced gray (0), RGB (2), gray-alpha (4) or RGBA (6) file."""
+def _unpack(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered scanlines [h, row bytes] -> samples [h, w, ch]: uint8 up
+    to 8 bits (1, 2 and 4 bits unscaled), big-endian uint16 at 16."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :w * ch].reshape(h, w, ch)
+    if depth == 16:
+        pairs = rows[:, :w * ch * 2].reshape(h, w, ch, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=-1, dtype=np.uint8)[..., None]
+
+
+def _samples(raw: bytes, w: int, h: int, ch: int, depth: int, interlace: int) -> np.ndarray:
+    """The samples [h, w, ch] of a decompressed IDAT stream, plain or as the
+    seven Adam7 passes (each filtered on its own; an empty one has no
+    bytes)."""
+    bpp = max(1, ch * depth // 8)  # the filters' byte distance
+
+    def image(data: bytes, pw: int, ph: int) -> np.ndarray:
+        row_bytes = -(-pw * ch * depth // 8)
+        return _unpack(_unfilter(data, ph, row_bytes, bpp), pw, ch, depth)
+
+    if not interlace:
+        return image(raw, w, h)
+    passes = [(x0, y0, dx, dy, max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy)))
+              for x0, y0, dx, dy in ADAM7]
+    sizes = [ph * (-(-pw * ch * depth // 8) + 1) if pw and ph else 0
+             for *_, pw, ph in passes]
+    if sum(sizes) != len(raw):
+        raise ValueError(f"PNG image data holds {len(raw)} bytes, expected {sum(sizes)} "
+                         "for its Adam7 passes")
+    out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (x0, y0, dx, dy, pw, ph), n in zip(passes, sizes):
+        if n:
+            out[y0::dy, x0::dx] = image(raw[pos:pos + n], pw, ph)
+            pos += n
+    return out
+
+
+def _read_png(path: str):
+    """(samples [H, W, channels], colour type, bit depth, PLTE [n, 3] or
+    None) of a PNG file; the samples as ``_samples`` gives them."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path} is not a PNG file")
-    header, idat = None, []
+    header, idat, palette = None, [], None
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(payload[:len(payload) // 3 * 3], np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(payload)
         elif kind == b"IEND":
@@ -170,15 +221,37 @@ def read_png(path: str) -> Tuple[np.ndarray, int]:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8:
-        raise ValueError(f"{path}: bit depth {depth} is not supported (8 only)")
     if color not in _CHANNELS:
-        raise ValueError(f"{path}: colour type {color} (palette) is not supported")
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNGs are not supported")
-    ch = _CHANNELS[color]
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
-    return pixels.reshape(h, w, ch), color
+        raise ValueError(f"{path}: colour type {color} is not a PNG colour type")
+    if depth not in _DEPTHS[color]:
+        raise ValueError(f"{path}: bit depth {depth} is not valid for colour type {color}")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: interlace method {interlace} is not a PNG method")
+    if color == 3 and palette is None:
+        raise ValueError(f"{path}: a palette PNG without a PLTE chunk")
+    samples = _samples(zlib.decompress(b"".join(idat)), w, h, _CHANNELS[color], depth,
+                       interlace)
+    return samples, color, depth, palette
+
+
+def read_png(path: str) -> Tuple[np.ndarray, int]:
+    """The samples [H, W, channels] of a PNG file and its colour type:
+    uint8 up to 8 bits (palette indices for colour type 3), uint16 at 16."""
+    samples, color, _, _ = _read_png(path)
+    return samples, color
+
+
+def _png_rgb(samples: np.ndarray, color: int, depth: int, palette) -> np.ndarray:
+    """A PNG's samples as uint8 RGB, by PIL's rules (the module docstring)."""
+    if color == 3:
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette)] = palette[:256]
+        return table[samples[..., 0]]
+    if depth == 16:
+        samples = (np.minimum(samples, 255) if color == 0 else samples >> 8).astype(np.uint8)
+    elif depth < 8:
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    return samples[..., :3] if color in (2, 6) else np.repeat(samples[..., :1], 3, axis=-1)
 
 
 def _format_of(head: bytes) -> str:
@@ -193,18 +266,19 @@ def _format_of(head: bytes) -> str:
 
 def read_image(path: str) -> np.ndarray:
     """An image file as uint8 RGB [H, W, 3], as PIL's
-    ``Image.open(path).convert("RGB")`` gives it: a PNG or a baseline JPEG,
-    by its first bytes."""
+    ``Image.open(path).convert("RGB")`` gives it: a PNG or a JPEG, by its
+    first bytes."""
     with open(path, "rb") as f:
         head = f.read(16)
     if head[:8] == PNG_SIGNATURE:
-        pixels, color = read_png(path)
-        return pixels[..., :3] if color in (2, 6) else np.repeat(pixels[..., :1], 3, axis=-1)
+        return _png_rgb(*_read_png(path))
     if head[:3] == b"\xff\xd8\xff":
         with open(path, "rb") as f:
             pixels = jpeg.decode(f.read())
+        if pixels.shape[2] == 4:
+            return jpeg.cmyk_to_rgb(pixels)
         return pixels if pixels.shape[2] == 3 else np.repeat(pixels, 3, axis=-1)
-    raise ValueError(f"{path}: a {_format_of(head)} file is not a PNG or a baseline JPEG, "
+    raise ValueError(f"{path}: a {_format_of(head)} file is not a PNG or a JPEG, "
                      "the formats read here")
 
 

@@ -1,14 +1,20 @@
 """Baseline JPEG without PIL (the card's machine has none): a decoder that
 gives the pixels PIL gives, and an encoder that writes what PIL writes.
 
-``decode(data)`` reads 8-bit baseline (and extended sequential) Huffman
-JPEGs of 1 or 3 components, any integral sampling factors, interleaved or
-not, with restart intervals. It computes as libjpeg(-turbo) does with
-PIL's settings: the 'islow' integer IDCT (jidctint.c), the "fancy"
-triangle-filter chroma upsampling for 2:1 factors (jdsample.c; other
-integral factors are replicated), and the fixed-point YCbCr -> RGB tables
-(jdcolor.c). Progressive, lossless, hierarchical and arithmetic-coded
-files, 12-bit samples and 2 or 4 components raise ``ValueError`` naming
+``decode(data)`` reads 8-bit Huffman JPEGs, baseline, extended sequential
+and progressive, of 1, 3 or 4 components, any integral sampling factors,
+interleaved or not, with restart intervals. A progressive file's scans
+(DC first and refinement, AC first with end-of-band runs, AC refinement
+with correction bits; jdphuff.c) add up into one coefficient array per
+component. It computes as libjpeg(-turbo) does with PIL's settings: the
+'islow' integer IDCT (jidctint.c), the "fancy" triangle-filter chroma
+upsampling for 2:1 factors (jdsample.c; other integral factors are
+replicated), and the fixed-point YCbCr -> RGB tables (jdcolor.c). Four
+components are CMYK as PIL reads them (Adobe's inverted samples, no colour
+transform), and ``cmyk_to_rgb`` is PIL's ``convert("RGB")`` of them.
+Lossless, hierarchical and arithmetic-coded files, YCCK, 12-bit samples,
+2 components and a progressive file that leaves a low coefficient
+unrefined (libjpeg would smooth its blocks) raise ``ValueError`` naming
 what they are.
 
 ``encode(rgb, quality=75)`` writes a baseline JFIF file as PIL's default
@@ -73,7 +79,7 @@ STD_HUFFMAN = {
 
 # The SOF markers this module does not read, by what they are.
 _UNSUPPORTED_SOF = {
-    0xC2: "progressive JPEG", 0xC3: "lossless JPEG",
+    0xC3: "lossless JPEG",
     0xC5: "hierarchical JPEG", 0xC6: "hierarchical progressive JPEG",
     0xC7: "hierarchical lossless JPEG", 0xC9: "arithmetic-coded JPEG",
     0xCA: "arithmetic-coded progressive JPEG", 0xCB: "arithmetic-coded lossless JPEG",
@@ -124,11 +130,22 @@ def _lookup_table(counts: List[int], symbols) -> List[int]:
 # -- decoding ---------------------------------------------------------------------
 
 
+# libjpeg-turbo smooths a progressive file's blocks (jdcoefct.c) while the
+# DC or one of the first SAVED_COEFS coefficients (zigzag order) is not
+# refined to its last bit.
+SAVED_COEFS = 10
+
+
 class _Component:
     def __init__(self, ident: int, h: int, v: int, tq: int):
         self.ident, self.h, self.v, self.tq = ident, h, v, tq
         self.td = self.ta = 0  # its DC and AC Huffman tables, set by a scan
         self.coef: Optional[np.ndarray] = None  # [rows, cols, 64] natural order
+        # A progressive file's coefficients as a flat list (each scan reads
+        # and writes single values), and each zigzag coefficient's last
+        # successive-approximation bit, -1 before its first scan.
+        self.flat: Optional[List[int]] = None
+        self.coef_bits = [-1] * 64
 
 
 def _entropy_segments(data: bytes, pos: int) -> Tuple[List[bytes], int]:
@@ -231,6 +248,138 @@ def _decode_scan(segments: List[bytes], comps: List[_Component], tables: dict,
                 raise ValueError("JPEG entropy-coded data ends early")
     for f, ix, vl in zip(flat, idx, vals):
         f[np.asarray(ix, np.int64)] = np.asarray(vl, np.int64)
+
+
+def _decode_progressive_scan(segments: List[bytes], comps: List[_Component], tables: dict,
+                             restart_interval: int, mcus: Tuple[int, int],
+                             ss: int, se: int, ah: int, al: int) -> None:
+    """Huffman-decode one progressive scan (spectral band ss..se, successive
+    approximation bits ah -> al) into each component's `flat` list, as
+    jdphuff.c does: DC first (the DC difference, shifted left by al), DC
+    refinement (one bit), AC first (runs, values shifted by al, end-of-band
+    runs across blocks), AC refinement (new coefficients of +-1 << al, one
+    correction bit for each coefficient already nonzero)."""
+    mcu_rows, mcu_cols = mcus
+    many = len(comps) > 1
+    units = [(ci, y, x) for ci, c in enumerate(comps)
+             for y in range(c.v if many else 1) for x in range(c.h if many else 1)]
+    hv = [(c.v, c.h) if many else (1, 1) for c in comps]
+    strides = [c.coef.shape[1] * 64 for c in comps]
+    flats = [c.flat for c in comps]
+    dc_tabs = [tables.get(("dc", c.td)) for c in comps]
+    ac_tabs = [tables.get(("ac", c.ta)) for c in comps]
+    zz = ZIGZAG.tolist()
+    p1, m1 = 1 << al, -(1 << al)
+    seg_i, w, p = 0, _windows(segments[0]), 0
+    preds, eobrun = [0] * len(comps), 0
+    for m in range(mcu_rows * mcu_cols):
+        if restart_interval and m and m % restart_interval == 0:
+            seg_i += 1
+            if seg_i >= len(segments):
+                raise ValueError("JPEG data ends before its last restart interval")
+            w, p, preds, eobrun = _windows(segments[seg_i]), 0, [0] * len(comps), 0
+        my, mx = divmod(m, mcu_cols)
+        for ci, y, x in units:
+            v, h = hv[ci]
+            base = (my * v + y) * strides[ci] + (mx * h + x) * 64
+            f = flats[ci]
+            if ss == 0 and ah == 0:  # DC first
+                code = dc_tabs[ci][((w[p >> 3] << (p & 7)) >> 16) & 0xFFFF]
+                if not code:
+                    raise ValueError("corrupt JPEG data: no Huffman code matches")
+                p += code >> 8
+                s = code & 0xFF
+                if s:
+                    diff = ((w[p >> 3] << (p & 7)) >> (32 - s)) & ((1 << s) - 1)
+                    p += s
+                    if diff < (1 << (s - 1)):
+                        diff -= (1 << s) - 1
+                    preds[ci] += diff
+                f[base] = preds[ci] * p1
+            elif ss == 0:  # DC refinement: one bit
+                if (w[p >> 3] >> (31 - (p & 7))) & 1:
+                    f[base] |= p1
+                p += 1
+            elif ah == 0:  # AC first
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                tab, k = ac_tabs[ci], ss
+                while k <= se:
+                    code = tab[((w[p >> 3] << (p & 7)) >> 16) & 0xFFFF]
+                    if not code:
+                        raise ValueError("corrupt JPEG data: no Huffman code matches")
+                    p += code >> 8
+                    r, s = (code >> 4) & 15, code & 15
+                    if s:
+                        k += r
+                        if k > 63:
+                            raise ValueError("corrupt JPEG data: a run past the block's end")
+                        val = ((w[p >> 3] << (p & 7)) >> (32 - s)) & ((1 << s) - 1)
+                        p += s
+                        if val < (1 << (s - 1)):
+                            val -= (1 << s) - 1
+                        f[base + zz[k]] = val * p1
+                    elif r == 15:
+                        k += 15
+                    else:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += ((w[p >> 3] << (p & 7)) >> (32 - r)) & ((1 << r) - 1)
+                            p += r
+                        eobrun -= 1
+                        break
+                    k += 1
+            else:  # AC refinement
+                k = ss
+                if not eobrun:
+                    tab = ac_tabs[ci]
+                    while k <= se:
+                        code = tab[((w[p >> 3] << (p & 7)) >> 16) & 0xFFFF]
+                        if not code:
+                            raise ValueError("corrupt JPEG data: no Huffman code matches")
+                        p += code >> 8
+                        r, s = (code >> 4) & 15, code & 15
+                        if s:
+                            s = p1 if (w[p >> 3] >> (31 - (p & 7))) & 1 else m1
+                            p += 1
+                        elif r != 15:
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += ((w[p >> 3] << (p & 7)) >> (32 - r)) & ((1 << r) - 1)
+                                p += r
+                            break
+                        # Pass the nonzero coefficients (a correction bit each)
+                        # and r zero ones; the new value goes at the next zero.
+                        while k <= se:
+                            pos = base + zz[k]
+                            c = f[pos]
+                            if c:
+                                if (w[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                                    f[pos] = c + p1 if c >= 0 else c + m1
+                                p += 1
+                            else:
+                                if r == 0:
+                                    break
+                                r -= 1
+                            k += 1
+                        if s:
+                            if k > 63:
+                                raise ValueError("corrupt JPEG data: a run past the block's end")
+                            f[base + zz[k]] = s
+                        k += 1
+                if eobrun:  # the rest of the band: correction bits only
+                    while k <= se:
+                        pos = base + zz[k]
+                        c = f[pos]
+                        if c:
+                            if (w[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                                f[pos] = c + p1 if c >= 0 else c + m1
+                            p += 1
+                        k += 1
+                    eobrun -= 1
+            if (p >> 3) >= len(w):
+                raise ValueError("JPEG entropy-coded data ends early")
 
 
 def _idct_1d(x: List[np.ndarray]) -> List[np.ndarray]:
@@ -358,8 +507,8 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 def decode(data: bytes) -> np.ndarray:
-    """A baseline JPEG file's pixels: uint8 [H, W, 3] RGB, or [H, W, 1] for
-    a grayscale file, as PIL decodes them."""
+    """A JPEG file's pixels as PIL decodes them: uint8 [H, W, 3] RGB,
+    [H, W, 1] for a grayscale file or [H, W, 4] CMYK for four components."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     pos = 2
@@ -369,6 +518,7 @@ def decode(data: bytes) -> np.ndarray:
     size = None
     restart_interval = 0
     adobe_transform = None
+    progressive = False
     scanned = False
     while pos < len(data):
         if data[pos] != 0xFF:
@@ -407,12 +557,13 @@ def decode(data: bytes) -> np.ndarray:
                 symbols = body[k + 17:k + 17 + sum(counts)]
                 tables["ac" if tc else "dc", th] = _lookup_table(counts, symbols)
                 k += 17 + sum(counts)
-        elif marker in (0xC0, 0xC1):  # SOF0 baseline, SOF1 extended sequential
+        elif marker in (0xC0, 0xC1, 0xC2):  # baseline, extended sequential, progressive
+            progressive = marker == 0xC2
             precision, height, width, nf = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise ValueError(f"{precision}-bit JPEG samples are not supported (8 only)")
-            if nf not in (1, 3):
-                raise ValueError(f"a JPEG of {nf} components is not supported (1 or 3)")
+            if nf not in (1, 3, 4):
+                raise ValueError(f"a JPEG of {nf} components is not supported (1, 3 or 4)")
             if height == 0:
                 raise ValueError("a JPEG whose height comes in a DNL marker is not supported")
             for c in range(nf):
@@ -427,6 +578,8 @@ def decode(data: bytes) -> np.ndarray:
                     raise ValueError(f"JPEG sampling factors {c.h}x{c.v} of {hmax}x{vmax} "
                                      "are not integral ratios")
                 c.coef = np.zeros((mcu_rows * c.v, mcu_cols * c.h, 64), np.int64)
+                if progressive:
+                    c.flat = [0] * c.coef.size
         elif marker == 0xDD:  # DRI
             (restart_interval,) = struct.unpack(">H", body[:2])
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
@@ -443,8 +596,16 @@ def decode(data: bytes) -> np.ndarray:
                     raise ValueError(f"corrupt JPEG: scan component {ident} not in the frame")
                 comp.td, comp.ta = t >> 4, t & 15
                 scan.append(comp)
+            ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, \
+                body[3 + 2 * ns] & 15
+            if progressive:
+                _check_progressive_scan(scan, ss, se, ah, al)
+            # A progressive scan codes with one table at most: DC first
+            # with the DC table, an AC scan with the AC one.
+            uses_dc = not progressive or (ss == 0 and ah == 0)
+            uses_ac = not progressive or se > 0
             for comp in scan:
-                for key in (("dc", comp.td), ("ac", comp.ta)):
+                for key in [("dc", comp.td)] * uses_dc + [("ac", comp.ta)] * uses_ac:
                     if key not in tables:
                         raise ValueError(f"corrupt JPEG: no {key[0].upper()} Huffman "
                                          f"table {key[1]}")
@@ -455,25 +616,64 @@ def decode(data: bytes) -> np.ndarray:
                 c = scan[0]
                 mcus = (_ceil_div(_ceil_div(size[0] * c.v, vmax), 8),
                         _ceil_div(_ceil_div(size[1] * c.h, hmax), 8))
-            _decode_scan(segments, scan, tables, restart_interval, mcus)
+            if progressive:
+                _decode_progressive_scan(segments, scan, tables, restart_interval, mcus,
+                                         ss, se, ah, al)
+            else:
+                _decode_scan(segments, scan, tables, restart_interval, mcus)
             scanned = True
         elif marker in (0xC8,) or 0xF0 <= marker <= 0xFD:
             raise ValueError(f"JPEG marker 0x{marker:02X} (an extension) is not supported")
     if not scanned:
         raise ValueError("JPEG file holds no scan")
     height, width = size
+    if len(comps) == 4 and adobe_transform == 2:
+        raise ValueError("a YCCK JPEG (Adobe transform 2) is not supported (CMYK only)")
     planes = []
     for c in comps:
         if c.tq not in qtables:
             raise ValueError(f"corrupt JPEG: no quantisation table {c.tq}")
+        if progressive:
+            if any(b != 0 for b in c.coef_bits[:SAVED_COEFS]):
+                raise ValueError("a progressive JPEG whose scans leave a low coefficient "
+                                 "unrefined is not supported (libjpeg smooths its blocks)")
+            c.coef = np.array(c.flat, np.int64).reshape(c.coef.shape)
         rows, cols = c.coef.shape[:2]
         samples = idct_islow((c.coef * qtables[c.tq]).reshape(rows, cols, 8, 8))
         planes.append(_upsample(_blocks_to_plane(samples), c, hmax, vmax, width, height))
     if len(comps) == 1:
         return planes[0].astype(np.uint8)[..., None]
+    if len(comps) == 4:  # PIL reads CMYK as Adobe writes it: inverted
+        return (255 - np.stack(planes, axis=-1)).astype(np.uint8)
     if adobe_transform == 0:  # stored as RGB
         return np.stack(planes, axis=-1).astype(np.uint8)
     return _ycc_to_rgb(*planes)
+
+
+def _check_progressive_scan(scan: List[_Component], ss: int, se: int, ah: int,
+                            al: int) -> None:
+    """jdphuff.c's start_pass_phuff_decoder checks, and each coefficient's
+    successive-approximation bits carried forward."""
+    if (ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63 or len(scan) != 1)) \
+            or (ah and al != ah - 1) or al > 13:
+        raise ValueError(f"corrupt progressive JPEG: a scan of band {ss}..{se}, bits "
+                         f"{ah} -> {al}, over {len(scan)} components")
+    for c in scan:
+        for k in range(ss, se + 1):
+            expected = -1 if ah == 0 else ah
+            if c.coef_bits[k] != expected:
+                raise ValueError(f"corrupt progressive JPEG: coefficient {k} refined "
+                                 f"from bit {ah} after bit {c.coef_bits[k]}")
+            c.coef_bits[k] = al
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """uint8 [..., 4] CMYK -> [..., 3] RGB, as PIL's ``convert("RGB")``
+    (Convert.c's cmyk2rgb: nk - MULDIV255(c, nk), nk = 255 - k)."""
+    c = cmyk.astype(np.int64)
+    nk = 255 - c[..., 3:4]
+    t = c[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
 # -- encoding ---------------------------------------------------------------------

@@ -268,15 +268,27 @@ def test_load_image_equals_pil(tmp_path, mode):
 
 
 def test_load_image_refuses_what_it_does_not_read(tmp_path):
-    Image.fromarray(np.zeros((4, 4), np.uint8), "L").convert("P").save(tmp_path / "p.png")
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(tmp_path / "d16.png")
+    """A palette and a 16-bit PNG read as PIL and JAX read them; a file
+    whose header says Adam7 over plain data, an invalid bit depth or colour
+    type, and a file that is no PNG raise."""
+    Image.fromarray(np.arange(16, dtype=np.uint8).reshape(4, 4) * 16, "L").convert(
+        "P").save(tmp_path / "p.png")
+    Image.fromarray(np.arange(16, dtype=np.uint16).reshape(4, 4) * 4000).save(
+        tmp_path / "d16.png")
+    for name in ("p.png", "d16.png"):
+        want = np.asarray(Image.open(tmp_path / name).convert("RGB"), np.float32) / 255.0
+        np.testing.assert_array_equal(metrics.load_image(str(tmp_path / name)), want)
+        np.testing.assert_array_equal(metrics.load_image(str(tmp_path / name)),
+                                      jmetrics.load_image(str(tmp_path / name)))
     ok = image._encode_png(np.zeros((4, 4, 3), np.uint8))
-    header = struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1)  # interlaced
     start = ok.index(b"IHDR") - 4
-    interlaced = ok[:start] + image._chunk(b"IHDR", header) + ok[start + 25:]
-    (tmp_path / "i.png").write_bytes(interlaced)
+    for name, fields in (("i.png", (8, 2, 0, 0, 1)), ("b3.png", (3, 2, 0, 0, 0)),
+                         ("c5.png", (8, 5, 0, 0, 0))):
+        header = struct.pack(">IIBBBBB", 4, 4, *fields)
+        (tmp_path / name).write_bytes(ok[:start] + image._chunk(b"IHDR", header)
+                                      + ok[start + 25:])
     (tmp_path / "x.png").write_bytes(b"GIF89a")
-    for name, match in (("p.png", "palette"), ("d16.png", "bit depth"),
-                        ("i.png", "interlaced"), ("x.png", "not a PNG")):
+    for name, match in (("i.png", "Adam7"), ("b3.png", "bit depth 3"),
+                        ("c5.png", "colour type 5"), ("x.png", "not a PNG")):
         with pytest.raises(ValueError, match=match):
             metrics.load_image(str(tmp_path / name))

@@ -84,5 +84,9 @@ def test_port_imports_nothing_of_jax():
                  "megaportraits_tpu_torch.models.repvgg",
                  "megaportraits_tpu_torch.models.resnet",
                  "megaportraits_tpu_torch.ops.warp_alt",
-                 "megaportraits_tpu_torch.data.pose_datasets"):
+                 "megaportraits_tpu_torch.data.pose_datasets",
+                 "megaportraits_tpu_torch.scripts.check_device",
+                 "megaportraits_tpu_torch.scripts.train_smoke",
+                 "megaportraits_tpu_torch.scripts.overfit",
+                 "megaportraits_tpu_torch.scripts.validate_student"):
         assert name in result["imported"]

@@ -6,7 +6,10 @@ same type (``True`` is not ``1``) and value (NaN matches NaN). Covered:
 every file under ``configs/``, the YAMLs the tests write with
 ``yaml.safe_dump``, a table of edge scalars, a hypothesis property over
 nested mappings dumped by ``yaml.safe_dump`` in block and flow style, and
-each unsupported construct raising ``ValueError`` with its line number.
+each unsupported construct raising ``ValueError`` with its line number,
+PyYAML's own edge cases (a byte-order mark, tabs, a sequence entry after a
+key, the document end marker) and BOM-prefixed configs through both
+``load_config``s.
 """
 
 import dataclasses
@@ -106,7 +109,7 @@ UNSUPPORTED = [
     ("a: 1\nb: |\n  text\n", 2, "block scalars"),
     ("a: >\n  text\n", 1, "block scalars"),
     ("a: 1\n---\nb: 2\n", 2, "several documents"),
-    ("a: 1\n...\n", 2, "several documents"),
+    ("a: 1\n...\nb: 2\n", 3, "several documents"),
     ("a: 1\nb:\n  c: 2\n  c: 3\n", 4, "duplicate key"),
     ("a: {x: 1, x: 2}\n", 1, "duplicate key"),
     ("a:\n  - x: 1\n", 2, "mapping inside a block sequence"),
@@ -129,6 +132,33 @@ UNSUPPORTED = [
 def test_unsupported_raises_with_its_line(text, line, what):
     with pytest.raises(ValueError, match=f"line {line}: .*{what}"):
         load(text)
+
+
+# PyYAML's edge cases: a leading byte-order mark is dropped (a later one is
+# kept), a tab outside quotes and comments raises, a '- ' entry cannot be a
+# key's value on its line, and '...' may end the document.
+PYYAML_EDGES = [
+    "\ufeffdata:\n  train_width: 256\n", "\ufeff# c\na: 1\n", "a: 1\n\ufeffb: 2\n",
+    "a:\tb\n", "a: b\t\n", "a:\t# c\n", "- \tx\n", "a: 1\n\t\nb: 2\n", "a: [1,\t2]\n",
+    "x: \"a\tb\"\n", "x: 'a\tb'\n", "x: 'it''s\tok'\n", "a: 1  # c\td\n",
+    "x: \"multi\n  li\tne\"\n",
+    "a: - x\n", "a:  - x\n", "a: -x\n", "a: b - x\n",
+    "a: 1\n...\n", "a: 1\n...", "a: 1\n... # c\n# d\n\n", "a: 1\n...\n...\n",
+    "a:\n  - 1\n...\n", "---\na: 1\n...\n", "---\n...\n", "a: 1\n ...\n",
+    "a: 1\n...\nb: 2\n", "a: 1\n...\n---\nb: 2\n", "...\n", "# c\n...\n",
+]
+
+
+@pytest.mark.parametrize("text", PYYAML_EDGES)
+def test_pyyaml_edge_cases(text):
+    """Read as PyYAML reads it, or raise with a line where PyYAML raises."""
+    try:
+        yaml.safe_load(text)
+    except yaml.YAMLError:
+        with pytest.raises(ValueError, match=r"line \d+: "):
+            load(text)
+        return
+    check(text)
 
 
 _TEXT = st.text(alphabet=st.sampled_from(
@@ -186,3 +216,30 @@ def test_load_config_sets_use_chain_kernel_and_filters_like_jax(tmp_path):
     # PyYAML's rule, kept: '1e-5' is a string in both packages.
     assert got.training.lr == want.training.lr == "1e-5"
     assert got.training.batch_size == 2
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+def test_bom_prefixed_config_reads_as_the_plain_one(path, tmp_path):
+    """A config saved with a UTF-8 byte-order mark: the same dict as the
+    plain file, and the same Config through the port's and JAX's
+    load_config."""
+    bom = tmp_path / os.path.basename(path)
+    bom.write_bytes(b"\xef\xbb\xbf" + open(path, "rb").read())
+    assert same(load_file(str(bom)), load_file(path))
+    got = dataclasses.asdict(tconfig.load_config(str(bom)))
+    got["model"].pop("use_chain_kernel")
+    assert got == dataclasses.asdict(jconfig.load_config(str(bom)))
+    assert got == dataclasses.asdict(jconfig.load_config(path))
+
+
+@pytest.mark.parametrize("head", ["", "# a comment first\n"])
+def test_bom_prefixed_config_keeps_its_first_section(head, tmp_path):
+    """The first key is not at its default, so dropping it would show."""
+    text = head + "data:\n  train_width: 256\ntraining:\n  batch_size: 3\n"
+    bom = tmp_path / "bom.yaml"
+    bom.write_bytes(b"\xef\xbb\xbf" + text.encode())
+    got = tconfig.load_config(str(bom))
+    want = jconfig.load_config(str(bom))
+    assert got.data.train_width == want.data.train_width == 256
+    assert got.data.train_width != tconfig.Config().data.train_width
+    assert got.training.batch_size == want.training.batch_size == 3
