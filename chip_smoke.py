@@ -496,9 +496,11 @@ def phase_chains(torch, dev, gen, conv_flops):
 # (10 boxes of 4 x 32 pixels by 2 channel tiles); 9x65x96 is on the haloed
 # path with a last column of one pixel and a last row of one; 128x128x256 has
 # 256 tiles, more than the card holds CTAs, so CTAs take 1 or 2 tiles a conv
-# and the residual comes by TMA; 12x20x40 has a C that is no multiple of 32.
+# and the residual comes by TMA; 12x20x40 has a C that is no multiple of 32;
+# 32x32x512 N=8 is the trunk at 256 (validate_student's teacher in
+# phase_scripts).
 CHAIN_RAGGED = [(40, 24, 256, 2), (9, 65, 96, 2), (128, 128, 256, 2),
-                (12, 20, 40, 1)]
+                (12, 20, 40, 1), (32, 32, 512, TRUNK_BLOCKS)]
 K3_REPEATS = 200
 
 
@@ -2371,6 +2373,74 @@ def run_tool(torch, dev, smi, name, fn):
     return out, "".join(tee.text), launches, seconds
 
 
+def teacher_against_float32(torch, dev, export, frames):
+    """validate_student's teacher as the tool builds it (float32 GHR, the
+    overfit export grafted into Gbase, Gbase-only, running statistics) on
+    each avatar's first frame driven by its held-out last one: K2 against
+    its plain version on the teacher's own trunk input (the bf16 operands
+    G2d hands it); the teacher's output with its trunk on K2 against the
+    same teacher all in float32, beside an all-bf16 teacher (the port's
+    DEFAULT_POLICY) against float32. The teacher with K2 must be no further
+    from float32 than twice the bf16 teacher is. Returns K2's max abs
+    error. Launches here are comparisons and are not counted."""
+    from megaportraits_tpu_torch.core.config import Config
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
+    from megaportraits_tpu_torch.models.genh import build_ghr
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
+    from megaportraits_tpu_torch.scripts import validate_student
+    from megaportraits_tpu_torch.train.train_student import make_teacher_forward
+
+    def teacher(policy):
+        model = build_ghr(Config().make_arch(), policy=policy, device=dev, seed=0,
+                          use_chain_kernel=True)
+        validate_student._graft(model.gbase, str(export), "g_variables", "--gbase-ckpt",
+                                "Gbase")
+        return model, make_teacher_forward(model, include_enh=False, bn_mode="running")
+
+    f32, f32_fwd = teacher(FP32_POLICY)
+    b16, b16_fwd = teacher(DEFAULT_POLICY)
+    b16.gbase.g2d.use_chain_kernel = False
+    g2d = f32.gbase.g2d
+    trunk_in = []
+    hook = g2d.conv1x1.register_forward_hook(lambda m, i, out: trunk_in.append(out))
+    k2_err, gaps = 0.0, {"K2 trunk": [], "bf16 teacher": []}
+    for fs in frames:
+        xs = torch.from_numpy(fs[0][None]).to(dev)
+        xd = torch.from_numpy(fs[-1][None]).to(dev)
+        g2d.use_chain_kernel = True
+        with_k2 = f32_fwd(xs, xd)
+        g2d.use_chain_kernel = False
+        ref = f32_fwd(xs, xd)
+        bf16 = b16_fwd(xs, xd)
+        for name, out in (("K2 trunk", with_k2), ("bf16 teacher", bf16)):
+            check(torch.isfinite(out).all().item(), f"{name} teacher output not finite")
+            gaps[name].append((out - ref).abs())
+        with torch.no_grad():
+            x = trunk_in[-1][0].to(torch.bfloat16).contiguous()
+            weights, scales, shifts = g2d.cached_trunk_chain_params(torch.bfloat16)
+            got = k2.resblock_chain(x, weights, scales, shifts)
+            want = k2.resblock_chain_plain(x, weights, scales, shifts)
+        err, rel = errors(got, want)
+        print(f"scripts validate_student's teacher trunk {tuple(x.shape)} N="
+              f"{weights.shape[0]}: K2 max_abs_err {err:.6g} rel {rel:.3g} against its "
+              f"plain version on the same bf16 operands")
+        check(rel <= 2 ** -5, f"K2 on the teacher's trunk disagrees with its plain "
+                              f"version: rel {rel}")
+        k2_err = max(k2_err, err)
+    hook.remove()
+    stats = {name: (torch.stack(g).max().item(), torch.stack(g).mean().item())
+             for name, g in gaps.items()}
+    print(f"scripts validate_student's teacher against itself in float32, output in "
+          f"[0, 1] over {len(frames)} held-out frames: trunk on K2 in bf16 max abs "
+          f"{stats['K2 trunk'][0]:.6g} mean {stats['K2 trunk'][1]:.6g}; all-bf16 teacher "
+          f"max abs {stats['bf16 teacher'][0]:.6g} mean {stats['bf16 teacher'][1]:.6g}")
+    for i, what in ((0, "max"), (1, "mean")):
+        check(stats["K2 trunk"][i] <= 2 * stats["bf16 teacher"][i] + 1e-6,
+              f"the teacher with its trunk on K2 is further from float32 ({what}) than "
+              f"twice the bf16 teacher")
+    return k2_err
+
+
 def phase_scripts(torch, dev, smi, work, size=SCRIPT_SIZE, smoke_size=TRAIN_SIZE,
                   smoke_batch=TRAIN_BATCH):
     """The repo's scripts/ tools on the port, each through its main() as
@@ -2388,10 +2458,12 @@ def phase_scripts(torch, dev, smi, work, size=SCRIPT_SIZE, smoke_size=TRAIN_SIZE
         --use-chain-kernel --teacher-bn-mode running: the teacher's trunk
         on K2 once a sample (a step's batch and each avatar's held-out
         frame), finite distillation losses that move, the side-by-side
-        PNGs and RESULTS.txt.
+        PNGs and RESULTS.txt; then that teacher against float32
+        (``teacher_against_float32``).
     The clips' ids name empty .mp4 files in the clip directory
     (validate_student lists clips by their .mp4; the cache is read first,
-    so no video is decoded). Returns the launches of all four."""
+    so no video is decoded). Returns the launches of all four and K2's max
+    abs error on the teacher's trunk."""
     import tempfile
 
     from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
@@ -2484,10 +2556,16 @@ def phase_scripts(torch, dev, smi, work, size=SCRIPT_SIZE, smoke_size=TRAIN_SIZE
         print(f"scripts validate_student: {SCRIPT_STUDENT_STEPS / seconds:.3f} steps/s over "
               f"the whole command (host clock: model builds, the teacher's restore, "
               f"{avatars} held-out frames with LPIPS included); {written}")
+        k2_err = None
         if dev.type == "cuda":
             check_trunk_launches("validate_student's teacher", launches,
                                  SCRIPT_STUDENT_STEPS * 2 + avatars, TRUNK_BLOCKS)
-    return dict(launches={k: sum(m[k] for m in measured) for k in measured[0]})
+            frames = validate_student._load_frames(validate_student.parse_args(
+                ["--size", str(size), "--num-avatars", str(avatars), "--video-dir",
+                 str(clips)]))
+            k2_err = teacher_against_float32(torch, dev, export, frames)
+    return dict(launches={k: sum(m[k] for m in measured) for k in measured[0]},
+                k2_max_abs_err=k2_err)
 
 
 # phase_bundle_eval: a synthetic pretrained bundle at the real sizes, the
@@ -2862,7 +2940,10 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            paths.append(phase_scripts(torch, dev, smi, Path(tmp))["launches"])
+            result = phase_scripts(torch, dev, smi, Path(tmp))
+            paths.append(result["launches"])
+            chain_rows["K2"]["max_abs_err"] = max(chain_rows["K2"]["max_abs_err"],
+                                                  result["k2_max_abs_err"])
         finally:
             os.chdir(here)
     torch.cuda.empty_cache()

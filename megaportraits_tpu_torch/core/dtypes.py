@@ -26,3 +26,10 @@ class Policy:
 
 DEFAULT_POLICY = Policy()
 FP32_POLICY = Policy(compute_dtype=torch.float32)
+
+
+def policy_for(device: torch.device) -> Policy:
+    """The policy of a run on `device` that sets no ``use_bf16`` (the
+    ``scripts/`` tools): bf16 compute on the card, as JAX's DEFAULT_POLICY;
+    float32 on the CPU, which lacks bf16 kernels the models use."""
+    return DEFAULT_POLICY if torch.device(device).type == "cuda" else FP32_POLICY

@@ -8,9 +8,12 @@ ResBlock2D 512->256->128->64) -> GN+ReLU+3x3 conv-3 -> sigmoid in float32
 With ``use_chain_kernel`` the trunk runs through kernel K2
 (``ops/kernels/resblock_chain.py``) under the JAX conditions: not training,
 norm 'batch', H % 8 == 0 and W % 8 == 0; BatchNorm folded into per-conv
-scale/shift; one call per sample. The folded, stacked operands are kept
-between calls (``cached_trunk_chain_params``) and folded again only after a
-weight or a BatchNorm statistic of the trunk changed.
+scale/shift; one call per sample. K2 takes bf16 operands, so on the card
+a G2d that computes in float32 hands it the trunk's input and weights in
+bf16 and takes its result back in float32 (its plain version on the CPU
+runs in the compute dtype, as JAX's kernel does). The folded, stacked
+operands are kept between calls (``cached_trunk_chain_params``) and folded
+again only after a weight or a BatchNorm statistic of the trunk changed.
 """
 
 from __future__ import annotations
@@ -52,25 +55,29 @@ class G2d(nn.Module):
         self.final_conv = TorchConv(a.ch(64), 3, (3, 3), padding=1, **kw)
         self.trunk_cache = OperandCache()
 
-    def trunk_chain_params(self):
-        """Stacked K2 parameters: weights [N,2,3,3,C,C] in the compute dtype,
-        BN-folded scales and shifts [N,2,C] in float32."""
+    def trunk_chain_params(self, dtype=None):
+        """Stacked K2 parameters: weights [N,2,3,3,C,C] in `dtype` (the
+        compute dtype by default), BN-folded scales and shifts [N,2,C] in
+        float32."""
         ws, scs, shs = [], [], []
         for name in self.trunk_names:
             k1, k2, s1, t1, s2, t2 = getattr(self, name).chain_params()
             ws.append(torch.stack([k1, k2]))
             scs.append(torch.stack([s1, s2]))
             shs.append(torch.stack([t1, t2]))
-        return torch.stack(ws), torch.stack(scs), torch.stack(shs)
+        return (torch.stack(ws).to(dtype or self.policy.compute_dtype),
+                torch.stack(scs), torch.stack(shs))
 
-    def cached_trunk_chain_params(self):
-        """``trunk_chain_params()``, folded again only after a conv weight or
-        bias, a BatchNorm weight or bias or a running statistic of the trunk
-        changed; ``trunk_cache.folds`` counts the folds."""
+    def cached_trunk_chain_params(self, dtype=None):
+        """``trunk_chain_params(dtype)``, folded again only after a conv
+        weight or bias, a BatchNorm weight or bias or a running statistic of
+        the trunk changed, or `dtype` did; ``trunk_cache.folds`` counts the
+        folds."""
+        dtype = dtype or self.policy.compute_dtype
         sources = [t for name in self.trunk_names
                    for t in getattr(self, name).chain_sources()]
-        return self.trunk_cache.get(sources, self.trunk_chain_params,
-                                    self.policy.compute_dtype)
+        return self.trunk_cache.get(sources, lambda: self.trunk_chain_params(dtype),
+                                    dtype)
 
     def trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """The ResBlock2D trunk on the 1x1 head's output [B, h, w, C]."""
@@ -82,12 +89,12 @@ class G2d(nn.Module):
                 resblock_chain,
             )
 
-            weights, scales, shifts = self.cached_trunk_chain_params()
-            cdt = self.policy.compute_dtype
+            kdt = torch.bfloat16 if x.device.type == "cuda" else self.policy.compute_dtype
+            weights, scales, shifts = self.cached_trunk_chain_params(kdt)
             return torch.stack([
                 resblock_chain(xi.contiguous(), weights, scales, shifts)
-                for xi in x.to(cdt)
-            ])
+                for xi in x.to(kdt)
+            ]).to(x.dtype)
         for name in self.trunk_names:
             x = getattr(self, name)(x, train)
         return x

@@ -39,9 +39,9 @@ from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
 from megaportraits_tpu_torch.core.config import Config
 from megaportraits_tpu_torch.core.debug import apply_platform_env
 from megaportraits_tpu_torch.core.device import resolve_device
+from megaportraits_tpu_torch.core.dtypes import policy_for
 from megaportraits_tpu_torch.data.dataset import EMODataset
 from megaportraits_tpu_torch.eval.heldout import HeldoutEvaluator
-from megaportraits_tpu_torch.scripts.train_smoke import policy_for
 from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
 from megaportraits_tpu_torch.utils.image import save_image
 

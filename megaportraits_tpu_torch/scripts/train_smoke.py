@@ -24,15 +24,10 @@ import torch
 from megaportraits_tpu_torch.core.config import Config
 from megaportraits_tpu_torch.core.debug import apply_platform_env
 from megaportraits_tpu_torch.core.device import resolve_device
-from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
+from megaportraits_tpu_torch.core.dtypes import policy_for
 from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
 
 BATCH_KEYS = ("source", "driving", "source_next", "source_star", "driving_star")
-
-
-def policy_for(dev: torch.device):
-    """bf16 on the card, as JAX's DEFAULT_POLICY; float32 on the CPU."""
-    return DEFAULT_POLICY if dev.type == "cuda" else FP32_POLICY
 
 
 class EventTimer:

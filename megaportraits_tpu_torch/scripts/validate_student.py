@@ -19,9 +19,10 @@ export and with a Gbase one, the teacher is Gbase alone (a random Genh
 collapses the target). ``--use-chain-kernel`` sets
 ``cfg.model.use_chain_kernel``: with ``--teacher-bn-mode running`` the
 teacher's G2d trunk runs on K2 (and so K1), once a sample; batch
-statistics keep it on PyTorch's convolutions (``G2d.chain_ok``). K2 takes
-bf16 operands, so with the switch the teacher computes in bf16 on the
-card (float32 weights), where JAX's stays float32.
+statistics keep it on PyTorch's convolutions (``G2d.chain_ok``). The
+teacher stays float32 with the switch: K2 takes bf16 operands, so G2d
+hands it the trunk's input and weights in bf16 on the card and takes its
+result back in float32; only the trunk loses precision.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
 from megaportraits_tpu_torch.core.config import Config
 from megaportraits_tpu_torch.core.debug import apply_platform_env
 from megaportraits_tpu_torch.core.device import resolve_device
-from megaportraits_tpu_torch.core.dtypes import FP32_POLICY
+from megaportraits_tpu_torch.core.dtypes import FP32_POLICY, policy_for
 from megaportraits_tpu_torch.data.dataset import EMODataset
 from megaportraits_tpu_torch.losses.perceptual import LPIPS
 from megaportraits_tpu_torch.models.genh import build_ghr
@@ -52,7 +53,6 @@ from megaportraits_tpu_torch.scripts.overfit import (
     cache_dir,
     require,
 )
-from megaportraits_tpu_torch.scripts.train_smoke import policy_for
 from megaportraits_tpu_torch.train.train_student import (
     init_student_state,
     make_student_train_step,
@@ -108,11 +108,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"loaded {sum(len(f) for f in frames)} frames over "
           f"{len(frames)} avatars")
 
-    # A float32 teacher: the higher-fidelity distillation reference. K2
-    # takes bf16 operands, so the chain kernel makes it compute in bf16 on
-    # the card. The Student trains at the device's policy.
-    teacher_policy = policy_for(dev) if cfg.model.use_chain_kernel else FP32_POLICY
-    teacher = build_ghr(cfg.make_arch(), policy=teacher_policy, device=dev, seed=0,
+    # A float32 teacher: the higher-fidelity distillation reference. The
+    # Student trains at the device's policy.
+    teacher = build_ghr(cfg.make_arch(), policy=FP32_POLICY, device=dev, seed=0,
                         use_chain_kernel=cfg.model.use_chain_kernel)
     if args.gbase_ckpt:
         _graft(teacher.gbase, args.gbase_ckpt, "g_variables", "--gbase-ckpt", "Gbase")

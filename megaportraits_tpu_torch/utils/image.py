@@ -36,7 +36,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -201,9 +201,11 @@ def _samples(raw: bytes, w: int, h: int, ch: int, depth: int, interlace: int) ->
     return out
 
 
-def _read_png(path: str):
+def read_png(path: str) -> Tuple[np.ndarray, int, int, Optional[np.ndarray]]:
     """(samples [H, W, channels], colour type, bit depth, PLTE [n, 3] or
-    None) of a PNG file; the samples as ``_samples`` gives them."""
+    None) of a PNG file; the samples as ``_samples`` gives them: uint8 up to
+    8 bits (palette indices for colour type 3; 1, 2 and 4 bits unscaled),
+    uint16 at 16."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != PNG_SIGNATURE:
@@ -232,13 +234,6 @@ def _read_png(path: str):
     samples = _samples(zlib.decompress(b"".join(idat)), w, h, _CHANNELS[color], depth,
                        interlace)
     return samples, color, depth, palette
-
-
-def read_png(path: str) -> Tuple[np.ndarray, int]:
-    """The samples [H, W, channels] of a PNG file and its colour type:
-    uint8 up to 8 bits (palette indices for colour type 3), uint16 at 16."""
-    samples, color, _, _ = _read_png(path)
-    return samples, color
 
 
 def _png_rgb(samples: np.ndarray, color: int, depth: int, palette) -> np.ndarray:
@@ -271,7 +266,7 @@ def read_image(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         head = f.read(16)
     if head[:8] == PNG_SIGNATURE:
-        return _png_rgb(*_read_png(path))
+        return _png_rgb(*read_png(path))
     if head[:3] == b"\xff\xd8\xff":
         with open(path, "rb") as f:
             pixels = jpeg.decode(f.read())

@@ -239,7 +239,7 @@ def test_eval_command_with_a_port_bundle(tmp_path, capsys):
 
 def _filters(path):
     """The row filter types of an 8-bit PNG."""
-    pixels, _ = image.read_png(path)
+    pixels = image.read_png(path)[0]
     h, w, ch = pixels.shape
     data = open(path, "rb").read()
     idat = b"".join(p for k, p in image._chunks(data) if k == b"IDAT")

@@ -46,6 +46,7 @@ from megaportraits_tpu.train.state import TrainState as JTrainState
 
 from megaportraits_tpu_torch.core import config as tconfig
 from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
+from megaportraits_tpu_torch.core.dtypes import FP32_POLICY
 from megaportraits_tpu_torch.eval.heldout import HeldoutEvaluator
 from megaportraits_tpu_torch.models.gbase import build_gbase
 from megaportraits_tpu_torch.scripts import check_device, overfit, train_smoke
@@ -461,6 +462,7 @@ def _stub_student(monkeypatch, jrec, trec):
 
     def t_build_ghr(arch, policy, device, seed, use_chain_kernel):
         trec.built["use_chain_kernel"] = use_chain_kernel
+        trec.built["teacher_policy"] = policy
         return _TTeacher()
 
     monkeypatch.setattr(jgenh, "GHR", _JTeacher)
@@ -512,6 +514,7 @@ def test_validate_student_matches_the_jax_script(teacher, clip_dir, tmp_path, mo
     assert jrc == trc == 0
     assert [line.replace("port_ckpt", "jax_ckpt") for line in tout] == jout
     assert trec.built.pop("use_chain_kernel") is False
+    assert trec.built.pop("teacher_policy") == FP32_POLICY
     assert trec.built == jrec.built
     assert trec.built["include_enh"] == (teacher != "gbase")
     _assert_batches_equal(trec.batches, jrec.batches)
@@ -535,6 +538,7 @@ def test_validate_student_names_what_it_cannot_restore(clip_dir, tmp_path, monke
                                "--device", "cpu", "--gbase-ckpt", str(tmp_path / "none"),
                                "--use-chain-kernel"])
     assert trec.built["use_chain_kernel"] is True
+    assert trec.built["teacher_policy"] == FP32_POLICY  # the switch keeps it float32
 
 
 # -- the tools for real at TINY on the CPU ---------------------------------------------
