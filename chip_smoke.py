@@ -30,31 +30,46 @@ Phases, in order; any failure exits non-zero:
      fused_resblock_chain on the G2d trunk input of each of those frames
      with the model's folded trunk parameters; launch counts, and each
      result equal to K2's on the same input bit for bit;
-  7. stage-2 HR serving: FULL Gbase + Genh (GHR), batch 1; set_source at
+  7. the full-width cases of utils/seeded.py (phase_full_width): Gbase's
+     encode_source + 2 drive frames at 512, GHR (Gbase at 256, bilinear x2,
+     Genh at 512) and the Student (3 avatars, 512, batch 2), FULL widths,
+     weights and images rebuilt from their seeds (checksums against the
+     golden's) and held against the JAX package's outputs that
+     tests/data/torch_port_goldens.npz keeps (a stride-8 subsample and the
+     central 64x64 crop): float32 with TF32 off within 1e-4 (and Gbase's
+     vc2d and es summaries within 1e-4 absolute and relative); float32 at
+     torch's own TF32 flags, as `infer --config parity.yaml` runs, within
+     1e-4 (and, printed, without Policy.conv_scope, which turns TF32 off
+     for a float32 policy's convolutions); bf16 with the trunk on K2 (Gbase, and GHR's Gbase) no further
+     from the golden than twice the plain bf16 trunk and within
+     FRAME_MAX_ABS / FRAME_MEAN_ABS (the Student's bf16 gap printed: no
+     kernel runs there); one line a comparison (case, precision, max and mean abs error, limit,
+     seconds); K2's launches there count in the JSON line;
+  8. stage-2 HR serving: FULL Gbase + Genh (GHR), batch 1; set_source at
      512, 4 drive frames at 512 with the trunk on K2, bilinear to 1024x1024
      (align_corners=False), Genh at 1024; launch counts, output checks,
      ms/frame and Genh's share of it;
-  8. stage-3 serving: FULL Student, 4 avatars, 1024x1024, batch 1; 4 frames
+  9. stage-3 serving: FULL Student, 4 avatars, 1024x1024, batch 1; 4 frames
      with two avatar indices; output checks, ms/frame;
-  9. stage-1 training: init_states + make_train_step, FULL, 512x512, batch
+  10. stage-1 training: init_states + make_train_step, FULL, 512x512, batch
      2, bf16 compute, Config() defaults, seeded weights and batches; 1
      warm-up and 3 timed steps with K1 and K2 switched on, which train mode
      must bypass (0 launches of K1, K2, K3); every metric of every step,
      ms/step, steps/s and peak memory beside the card's name and power
      limit; G and D moved, the rotation net and the loss nets bit for bit,
      G2d's BatchNorm statistics moved;
-  10. serving from the trained weights: ReenactmentSession(bn_mode=
+  11. serving from the trained weights: ReenactmentSession(bn_mode=
      'running'), set_source + 2 frames with the trunk on K2; the trunk's
      operands folded once more than before the steps, K2 once a frame,
      frames finite, the K2 trunk against float32 as in phase 5;
-  11. Gbase remat (phase_remat): the stage-1 step of phase 9 under remat
+  12. Gbase remat (phase_remat): the stage-1 step of phase 10 under remat
      'none', 'selective' and 'full' at batch 2 and 'selective' at batch 4
      (stage1-base.yaml's batch), 1 warm-up and 2 timed steps each: ms/step
      and peak memory; 'selective' and 'full' must peak below 'none', and
      their first steps' metrics agree with 'none''s within 1e-3 relative.
-     (Phase 9 and the drivers train with init_states' default, JAX's:
+     (Phase 10 and the drivers train with init_states' default, JAX's:
      'selective' at 512.)
-  12. stage-2 training: init_hr_state + make_hr_train_step, FULL,
+  13. stage-2 training: init_hr_state + make_hr_train_step, FULL,
      stage2-hr.yaml's shapes (base 512, Genh at 1024, batch 2, lr 1e-5),
      bf16 compute, a seeded frozen Gbase with calibrated BatchNorms and its
      trunk on K2; 1 warm-up and 3 timed steps: every metric, ms/step,
@@ -63,15 +78,15 @@ Phases, in order; any failure exits non-zero:
      statistics moved, Gbase and VGG19 bit for bit; Genh's state through
      CheckpointManager and back into a fresh state, bit for bit, and one
      Genh frame from it within 1e-6;
-  13. stage-3 training: init_student_state + make_student_train_step,
+  14. stage-3 training: init_student_state + make_student_train_step,
      FULL, stage3-student.yaml's shapes (512, batch 4, 4 avatars, lr 1e-4),
      the inline GHR teacher (calibrated, its trunk on K2); 1 warm-up and 3
-     timed steps as in 11, K2 four times a step, the Student and its
+     timed steps as in 13, K2 four times a step, the Student and its
      statistics moved, the teacher bit for bit; make_teacher_forward in
      'running' (K2 once a sample), 'batch' (no K2, no statistic changed)
      and include_enh=False ([0, 1]); one step on a batch with 'target01'
      (no teacher, no kernel);
-  14. the training drivers (train/main_{base,hr,student}.py), FULL, in a
+  15. the training drivers (train/main_{base,hr,student}.py), FULL, in a
      temporary working directory, on 2 clips of 6 smooth frames written
      straight into EMODataset's npz cache at 512 and 1024 (no cv2 on the
      card's machine to decode mp4s). Each runs as `python -m
@@ -111,13 +126,13 @@ Phases, in order; any failure exits non-zero:
        ghr_variables checkpoint written from the two exports (bit for bit
        after the steps); K2 4 a step.
      For each: steps/s on the host clock from the first batch request to
-     the return, beside the bare step's CUDA-event ms of phases 9, 11 and
-     12 (the gap is data, prefetch, logging, evaluation and saving), the
+     the return, beside the bare step's CUDA-event ms of phases 10, 12 and
+     13 (the gap is data, prefetch, logging, evaluation and saving), the
      time in checkpoint saves and in held-out evaluations (each timed on
      the host clock after a synchronise), the set-up time, the time the
      driver waited on the prefetch per step, the bytes copied
      host-to-device per step and the peak memory;
-  15. the data-parallel path (phase_distributed), in phase 14's directory:
+  16. the data-parallel path (phase_distributed), in phase 15's directory:
      an in-process NCCL group of one rank and a mesh over it; two plain
      stage-1 steps (FULL 512, batch 2) and one through the data-parallel
      path from the same state, whose gap to the plain step (metrics,
@@ -126,7 +141,7 @@ Phases, in order; any failure exits non-zero:
      (mesh_shape {data: 1}) with K2 in the teacher (4 launches a step,
      counted in the JSON line), its checkpoint restored into a plain
      Student bit for bit;
-  16. the scripts/ tools (phase_scripts), each through its main() in a
+  17. the scripts/ tools (phase_scripts), each through its main() in a
      temporary working directory with $TMPDIR in it: check_device (every
      kernel builds), train_smoke (FULL 512, batch 2, 3 steps after the
      first; finite metrics that move, each step's CUDA-event ms),
@@ -137,7 +152,7 @@ Phases, in order; any failure exits non-zero:
      --use-chain-kernel --teacher-bn-mode running: K2 once a sample of
      each step and each avatar's held-out frame, finite moving losses,
      the PNGs and RESULTS.txt); each command's seconds and launches;
-  17. the pretrained bundle and eval (phase_bundle_eval): synthetic
+  18. the pretrained bundle and eval (phase_bundle_eval): synthetic
      original .pth files at their real sizes (2DFAN-4, InceptionResnetV1,
      VGG16 with the LPIPS heads, VGG19, resnet18, 6DRepNet) made from
      seeded port modules through the converter's tables, converted,
@@ -150,14 +165,14 @@ Phases, in order; any failure exits non-zero:
      InceptionResnetV1 at 160; the graft report against the FULL leaf
      counts; PerceptualLoss(use_vggface=True) forward + backward at 512,
      batch 2, and its peak memory;
-  18. the stage-1 driver with use_gaze_loss (phase_driver_gaze): 512, batch
+  19. the stage-1 driver with use_gaze_loss (phase_driver_gaze): 512, batch
      2, 2 steps, pretrained_path at the bundle: the FAN provider
      installed, gaze_masks on every batch with their coverage, loss_G_gaze
      finite, the masks' ms a batch, the prefetch wait, steps/s;
-  19. one JSON line listing every kernel with its numbers, the launches
-     summed over the driven paths (phases 5, 7, 10 and 12 to 18, the
-     serving commands of phase 14 included);
-  20. last line: {"ok": true, "device": {...}}.
+  20. one JSON line listing every kernel with its numbers, the launches
+     summed over the driven paths (phases 5, 7, 8, 11 and 13 to 19, the
+     serving commands of phase 15 included);
+  21. last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 5 samples after 2 warm-ups (a training
 step: of 3 after 1); the kernels, their plain versions and the library
@@ -168,6 +183,7 @@ matmul). The library yardsticks run cuDNN with cudnn.benchmark on.
 """
 
 import ast
+import contextlib
 import json
 import math
 import os
@@ -205,6 +221,12 @@ FRAME_MEAN_ABS = 0.02
 FULL_GBASE_LEAVES = 178
 FULL_PLOSS_LEAVES = 665
 VGGFACE_LEAVES = 602  # of FULL_PLOSS_LEAVES, InceptionResnetV1's
+# The full-width cases against the JAX package's golden: float32 outputs
+# within 1e-4 absolute on the golden's sampled pixels (the CPU test holds
+# the port to the same against JAX itself); Gbase's vc2d and es summaries
+# (max, mean, std) within 1e-4 absolute and relative.
+FULL_WIDTH_ABS = 1e-4
+GOLDEN = ROOT / "tests" / "data" / "torch_port_goldens.npz"
 
 
 def die(msg):
@@ -735,6 +757,139 @@ def phase_k3_path(torch, model, session, frames):
     print(f"K3 path: each frame's trunk equals K2's bit for bit (max abs error "
           f"against the float32 trunk {worst:.6g})")
     return launches["fused_resblock_chain"]
+
+
+def golden_gap(np, seeded, golden, name, out):
+    """(max, mean) absolute error of an output's sampled pixels (the
+    golden's stride-8 subsample and central crop) against the golden."""
+    got = seeded.samples(out.cpu().numpy())
+    diff = np.concatenate([np.abs(got[k] - golden[f"{name}/{k}"]).ravel()
+                           for k in ("sub", "crop")])
+    return float(diff.max()), float(diff.mean())
+
+
+@contextlib.contextmanager
+def without_conv_scope():
+    """A float32 policy's convolutions as the TF32 flags say, as they ran
+    before ``Policy.conv_scope`` existed."""
+    from megaportraits_tpu_torch.core.dtypes import Policy
+
+    scope = Policy.conv_scope
+    Policy.conv_scope = lambda self: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        Policy.conv_scope = scope
+
+
+def phase_full_width(torch, dev):
+    """The full-width cases of utils/seeded.py rebuilt on the card from their
+    seeds and held against the JAX package's golden, in float32 with TF32
+    off, in float32 at torch's own TF32 flags (parity.yaml as the commands
+    run it) and in bf16 with and without K2. Every comparison prints its
+    line before any check fails. Returns the kernel counts of the K2 runs."""
+    import numpy as np
+
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
+    from megaportraits_tpu_torch.utils import seeded
+
+    with np.load(GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    smoke_flags = (cudnn.allow_tf32, matmul.allow_tf32)
+    failures, launches = [], []
+
+    def run(case, model, images):
+        t0 = time.perf_counter()
+        out = seeded.run_case(case, model, images)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def report(name, precision, gap, limit, seconds, ok):
+        print(f"full width {name}, {precision}: max abs {gap[0]:.6g}, mean abs "
+              f"{gap[1]:.6g} (limit {limit}), {seconds:.2f} s")
+        if not ok:
+            failures.append(f"{name}, {precision}: {gap} over {limit}")
+
+    def float32_run(case, model, images, precision):
+        out, secs = run(case, model, images)
+        gap = golden_gap(np, seeded, golden, case.name, out["out"])
+        report(case.name, precision, gap, f"max {FULL_WIDTH_ABS}", secs,
+               gap[0] <= FULL_WIDTH_ABS)
+        for key in ("vc2d", "es"):
+            if key in out:
+                got = seeded.summary(out[key].cpu().numpy())
+                want = golden[f"{case.name}/{key}"]
+                err = np.abs(got - want) / (FULL_WIDTH_ABS * (1 + np.abs(want)))
+                print(f"full width {case.name}, {precision}: {key} max/mean/std "
+                      f"{got.tolist()} against {want.tolist()}")
+                if err.max() > 1:
+                    failures.append(f"{case.name}, {precision}: {key} summary "
+                                    f"{got.tolist()} vs {want.tolist()}")
+
+    for case in seeded.CASES.values():
+        t0 = time.perf_counter()
+        state = seeded.case_state(case)
+        images = seeded.seeded_images(case.image_seed, case.images, case.size)
+        check(seeded.checksum(state) == str(golden[f"{case.name}/weights_sha256"]),
+              f"{case.name}: the seeded weights differ from the golden's "
+              f"(numpy {np.__version__})")
+        check(seeded.checksum({"images": images})
+              == str(golden[f"{case.name}/images_sha256"]),
+              f"{case.name}: the seeded images differ from the golden's")
+        images = torch.from_numpy(images).to(dev)
+        model = seeded.build_model(case, FP32_POLICY, dev, state)
+        print(f"full width {case.name}: weights and images drawn, checked and "
+              f"loaded in {time.perf_counter() - t0:.1f} s")
+        float32_run(case, model, images, "float32, TF32 off")
+        cudnn.allow_tf32, matmul.allow_tf32 = True, False  # torch's defaults
+        try:
+            float32_run(case, model, images,
+                        "float32 at torch's TF32 defaults (parity.yaml)")
+            with without_conv_scope():
+                out, secs = run(case, model, images)
+            report(case.name, "float32 at torch's TF32 defaults without "
+                   "Policy.conv_scope", golden_gap(np, seeded, golden, case.name,
+                                                   out["out"]),
+                   "none: the gap the scope closes", secs, True)
+        finally:
+            cudnn.allow_tf32, matmul.allow_tf32 = smoke_flags
+        del model
+
+        model = seeded.build_model(case, DEFAULT_POLICY, dev, state)
+        g2d = None  # the trunk K2 can carry; the Student has none
+        if case.name == "gbase":
+            g2d = model.g2d
+        elif case.name == "ghr":
+            g2d = model.gbase.g2d
+        out, secs = run(case, model, images)
+        plain = golden_gap(np, seeded, golden, case.name, out["out"])
+        frame_limit = f"max {FRAME_MAX_ABS}, mean {FRAME_MEAN_ABS}"
+        if g2d is None:
+            # No kernel runs in the Student: its bf16 gap is bf16's own
+            # rounding through the model's gain, printed without a limit.
+            report(case.name, "bf16", plain, "none: no kernel", secs, True)
+        else:
+            report(case.name, "bf16, plain trunk", plain, frame_limit, secs,
+                   plain[0] <= FRAME_MAX_ABS and plain[1] <= FRAME_MEAN_ABS)
+            g2d.use_chain_kernel = True
+            reset_counts()
+            out, secs = run(case, model, images)
+            launches.append(counts())
+            k2 = golden_gap(np, seeded, golden, case.name, out["out"])
+            report(case.name, "bf16, trunk on K2", k2,
+                   f"twice the plain trunk's ({2 * plain[0]:.6g}, "
+                   f"{2 * plain[1]:.6g}) and {frame_limit}", secs,
+                   k2[0] <= min(2 * plain[0], FRAME_MAX_ABS)
+                   and k2[1] <= min(2 * plain[1], FRAME_MEAN_ABS))
+            want_k2 = case.images - 1 if case.name == "gbase" else 1
+            ran = launches[-1]["resblock_chain"]
+            if ran != want_k2:
+                failures.append(f"{case.name}: K2 ran {ran} times, want {want_k2}")
+        del model, state, images, out
+        torch.cuda.empty_cache()
+    check(not failures, "full width: " + "; ".join(failures))
+    return launches
 
 
 def phase_hr(torch, dev):
@@ -2918,6 +3073,7 @@ def main():
     del model, session, frames
     torch.cuda.empty_cache()
     paths = [launches]
+    paths.extend(phase_full_width(torch, dev))
     paths.append(phase_hr(torch, dev)["launches"])
     torch.cuda.empty_cache()
     phase_student(torch, dev)
@@ -2954,7 +3110,8 @@ def main():
         torch.cuda.empty_cache()
         paths.append(phase_driver_gaze(torch, dev, smi, work, result["bundle"],
                                        bare["base"])["launches"])
-    # Launches over every driven path: stage 1, HR serving, serving after
+    # Launches over every driven path: stage 1, the full-width cases' bf16
+    # runs on K2, HR serving, serving after
     # stage-1 training, the HR step, the Student step and its teacher, the
     # three drivers (serving the stage-1 export included), the serving
     # commands (infer twice and reenact, in this process), the stage-3

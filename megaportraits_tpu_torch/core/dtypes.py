@@ -3,13 +3,38 @@
 Counterpart of ``megaportraits_tpu/core/dtypes.py``. bf16 has float32's
 exponent range, so inference needs no loss scaling; norm layers reduce in
 float32 whatever the compute type.
+
+A float32 policy computes in float32 on the card too: its convolutions run
+under ``cudnn_float32`` (TF32 off), as JAX's float32 convolutions run at
+``Precision.HIGHEST`` where it matters; torch's default would let cuDNN
+round their inputs to TF32's 10-bit mantissa.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+
+
+@contextlib.contextmanager
+def cudnn_float32():
+    """cuDNN convolutions in full float32 while the block runs, whatever
+    the process-wide ``torch.backends.cudnn.allow_tf32`` says (torch's
+    default is True); the flag is put back after. Matmuls need nothing:
+    torch's default for float32 matmuls is full precision, and the port
+    never changes it. The flag is process-wide: a convolution in another
+    thread while the block runs sees it off too."""
+    cudnn = torch.backends.cudnn
+    if not cudnn.allow_tf32:
+        yield
+        return
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +47,14 @@ class Policy:
 
     def cast_to_compute(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.compute_dtype)
+
+    def conv_scope(self):
+        """Where the policy's convolutions run: ``cudnn_float32()`` for a
+        float32 compute type; as the flags say for bf16, which has no TF32
+        mode."""
+        if self.compute_dtype == torch.float32:
+            return cudnn_float32()
+        return contextlib.nullcontext()
 
 
 DEFAULT_POLICY = Policy()

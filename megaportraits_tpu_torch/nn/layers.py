@@ -72,7 +72,8 @@ class TorchConv(nn.Module):
 
     2D (NHWC) or 3D (NDHWC) by ``len(kernel_size)``; ``strides`` and
     ``padding`` are torch's symmetric ints. Input, weight and bias are cast to the compute
-    dtype, as flax's ``nn.Conv(dtype=...)`` does.
+    dtype, as flax's ``nn.Conv(dtype=...)`` does; a float32 policy convolves
+    with TF32 off (``Policy.conv_scope``).
     """
 
     def __init__(self, in_features: int, features: int,
@@ -105,8 +106,9 @@ class TorchConv(nn.Module):
         cdt = self.policy.compute_dtype
         conv = F.conv2d if self.nd == 2 else F.conv3d
         bias = None if self.bias is None else self.bias.to(cdt)
-        y = conv(to_channels_first(x.to(cdt)), self.weight.to(cdt), bias,
-                 self.strides, self.padding, 1, self.groups)
+        with self.policy.conv_scope():
+            y = conv(to_channels_first(x.to(cdt)), self.weight.to(cdt), bias,
+                     self.strides, self.padding, 1, self.groups)
         return to_channels_last(y)
 
 
@@ -145,8 +147,9 @@ class WSConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.policy.compute_dtype
         conv = F.conv2d if self.nd == 2 else F.conv3d
-        y = conv(to_channels_first(x.to(cdt)), self.standardized_weight().to(cdt),
-                 None, 1, self.padding)
+        with self.policy.conv_scope():
+            y = conv(to_channels_first(x.to(cdt)),
+                     self.standardized_weight().to(cdt), None, 1, self.padding)
         return to_channels_last(y) + self.bias.to(cdt)
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from megaportraits_tpu_torch.core.dtypes import cudnn_float32
 from megaportraits_tpu_torch.nn.layers import to_channels_first, to_channels_last
 
 
@@ -107,7 +108,8 @@ def anti_alias_downsample(x: torch.Tensor, scale: float) -> torch.Tensor:
     xf = to_channels_first(x.float())
     xf = F.pad(xf, (ka, kb, ka, kb))
     k = torch.as_tensor(kernel, device=x.device)[None, None].expand(c, 1, -1, -1)
-    out = to_channels_last(F.conv2d(xf, k.contiguous(), groups=c))
+    with cudnn_float32():  # JAX's Precision.HIGHEST
+        out = to_channels_last(F.conv2d(xf, k.contiguous(), groups=c))
     h, w = out.shape[1], out.shape[2]
     out = nearest_resize(out, [int(h * scale), int(w * scale)], axes=[1, 2])
     return out.to(x.dtype)

@@ -5,7 +5,8 @@ import of any raises), and ``PIL``, ``cv2`` and ``yaml``, which the machine
 with the card lacks (the port reads YAML and images without them, and
 imports cv2 only inside the functions that decode or write video files),
 and ``matplotlib`` and ``scipy``, which the port imports
-only inside the functions that draw or compute with them; it imports every
+only inside the functions that draw or compute with them, and the tests'
+helpers (``torch_port_utils``, ``torch_port_full_width``); it imports every
 module of ``megaportraits_tpu_torch`` and lists the modules of the JAX
 package that got loaded: there must be none.
 Every module imports on a host without a card (the kernels are built and
@@ -22,7 +23,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
 for blocked in ("jax", "flax", "optax", "orbax", "PIL", "cv2", "yaml", "matplotlib",
-                "scipy"):
+                "scipy", "tests", "torch_port_utils", "torch_port_full_width"):
     sys.modules[blocked] = None
 import megaportraits_tpu_torch as pkg
 names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -88,5 +89,6 @@ def test_port_imports_nothing_of_jax():
                  "megaportraits_tpu_torch.scripts.check_device",
                  "megaportraits_tpu_torch.scripts.train_smoke",
                  "megaportraits_tpu_torch.scripts.overfit",
-                 "megaportraits_tpu_torch.scripts.validate_student"):
+                 "megaportraits_tpu_torch.scripts.validate_student",
+                 "megaportraits_tpu_torch.utils.seeded"):
         assert name in result["imported"]
