@@ -45,6 +45,23 @@ Phases, in order; any failure exits non-zero:
      FRAME_MAX_ABS / FRAME_MEAN_ABS (the Student's bf16 gap printed: no
      kernel runs there); one line a comparison (case, precision, max and mean abs error, limit,
      seconds); K2's launches there count in the JSON line;
+  7b. the full-width training cases of utils/seeded.py
+     (phase_train_full_width): one step each of stage 1 (Gbase, D, the
+     perceptual loss), stage 2 (Genh behind a frozen Gbase; target 512)
+     and stage 3 (the Student, 3 avatars, the GHR teacher inline, then on
+     'target01'), FULL widths at 256, batch 2, rebuilt from their seeds
+     (checksums against the golden's) and held against the JAX package's
+     steps that tests/data/torch_port_train_goldens.npz keeps (metrics,
+     samples of the prediction and of the frozen network's output, every
+     BatchNorm statistic, a strided sample of each gradient leaf): float32
+     with TF32 off and float32 at torch's own TF32 flags, each quantity
+     within the larger of twice the golden's self-gap and its floor
+     (seeded.tolerance); the latter also without Policy.backward_scope,
+     printed, with what TF32 in the backward alone moves; bf16 printed, its
+     frozen Gbase's trunk on K2 within twice the plain trunk's gaps of the
+     frozen output and the prediction on the same step (K2 once a sample,
+     counted in the JSON line); one line a
+     run, precision and quantity (max and mean gap, limit, seconds);
   8. stage-2 HR serving: FULL Gbase + Genh (GHR), batch 1; set_source at
      512, 4 drive frames at 512 with the trunk on K2, bilinear to 1024x1024
      (align_corners=False), Genh at 1024; launch counts, output checks,
@@ -170,8 +187,8 @@ Phases, in order; any failure exits non-zero:
      installed, gaze_masks on every batch with their coverage, loss_G_gaze
      finite, the masks' ms a batch, the prefetch wait, steps/s;
   20. one JSON line listing every kernel with its numbers, the launches
-     summed over the driven paths (phases 5, 7, 8, 11 and 13 to 19, the
-     serving commands of phase 15 included);
+     summed over the driven paths (phases 5, 7, 7b, 8, 11 and 13 to 19,
+     the serving commands of phase 15 included);
   21. last line: {"ok": true, "device": {...}}.
 
 Times are CUDA-event medians of 5 samples after 2 warm-ups (a training
@@ -227,6 +244,7 @@ VGGFACE_LEAVES = 602  # of FULL_PLOSS_LEAVES, InceptionResnetV1's
 # (max, mean, std) within 1e-4 absolute and relative.
 FULL_WIDTH_ABS = 1e-4
 GOLDEN = ROOT / "tests" / "data" / "torch_port_goldens.npz"
+TRAIN_GOLDEN = ROOT / "tests" / "data" / "torch_port_train_goldens.npz"
 
 
 def die(msg):
@@ -889,6 +907,173 @@ def phase_full_width(torch, dev):
         del model, state, images, out
         torch.cuda.empty_cache()
     check(not failures, "full width: " + "; ".join(failures))
+    return launches
+
+
+@contextlib.contextmanager
+def without_backward_scope():
+    """A float32 step's backward convolutions as the TF32 flags say, as they
+    ran before the trainers took their gradients under
+    ``Policy.backward_scope``."""
+    from megaportraits_tpu_torch.core.dtypes import Policy
+
+    scope = Policy.backward_scope
+    Policy.backward_scope = lambda self: contextlib.nullcontext()
+    try:
+        yield
+    finally:
+        Policy.backward_scope = scope
+
+
+def train_gap_groups(gaps):
+    """The gaps of ``seeded.train_gaps`` by quantity: {quantity: (the names
+    held, the name of the largest gap, max, mean)}. The metrics' max and
+    mean are over the metrics, a gradient's over its leaves (its overall
+    gap is held too); the prediction's, the frozen network's output's and
+    the statistics' are their max and mean absolute gaps."""
+    metrics = [k for k in gaps if k.startswith("metric/")]
+    out = {"metrics": (metrics, max(metrics, key=gaps.get), max(gaps[k] for k in metrics),
+                       statistics.mean(gaps[k] for k in metrics)),
+           "prediction": (["pred", "pred_mean"], "pred", gaps["pred"], gaps["pred_mean"]),
+           "stats": (["stats", "stats_mean"], "stats", gaps["stats"], gaps["stats_mean"])}
+    if "frozen" in gaps:
+        out["frozen output"] = (["frozen", "frozen_mean"], "frozen", gaps["frozen"],
+                                gaps["frozen_mean"])
+    for net in sorted({k.split("/")[1] for k in gaps if k.startswith("grad/")}):
+        leaves = [k for k in gaps if k.startswith(f"grad/{net}/")]
+        out[f"grad {net}"] = (leaves + [f"grad/{net}"], max(leaves, key=gaps.get),
+                              max(gaps[k] for k in leaves),
+                              statistics.mean(gaps[k] for k in leaves))
+    return out
+
+
+def phase_train_full_width(torch, dev):
+    """The full-width training cases of utils/seeded.py (stage 1, 2 and 3
+    at 256, batch 2, FULL widths) rebuilt on the card from their seeds and
+    held against the JAX package's golden (tests/data/
+    torch_port_train_goldens.npz): float32 with TF32 off and float32 at
+    torch's own TF32 flags, each quantity within the larger of twice the
+    golden's self-gap and its floor (``seeded.tolerance``); the latter
+    also without ``Policy.backward_scope``, printed. Then bf16, as the
+    training configs run: every gap printed; in stages 2 and 3 with the
+    frozen Gbase's trunk plain and on K2, K2's gaps of the frozen network's
+    output and of the prediction (max and mean) no larger than twice the
+    plain trunk's on the same step, the metrics' printed beside them. One line
+    a comparison, every one printed before any check fails. Returns the
+    kernel counts of the K2 runs."""
+    import numpy as np
+
+    from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
+    from megaportraits_tpu_torch.utils import seeded
+
+    with np.load(TRAIN_GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    smoke_flags = (cudnn.allow_tf32, matmul.allow_tf32)
+    failures, launches = [], []
+
+    def steps(case, nets, batch):
+        t0 = time.perf_counter()
+        out = seeded.run_train_case(case, nets, batch)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def compare(case, precision, out, secs, held):
+        """Print each quantity's gaps to the golden; hold them if `held`.
+        Returns {run: gaps}."""
+        result = {}
+        for run in case.runs:
+            want = seeded.comparable(seeded.golden_run(golden, case.name, run))
+            self_gaps = seeded.golden_self_gaps(golden, case.name, run)
+            gaps = seeded.train_gaps(seeded.comparable(seeded.train_samples(out[run])),
+                                     want)
+            result[run] = gaps
+            for quantity, (names, top, worst, mean) in train_gap_groups(gaps).items():
+                over = [f"{k} {gaps[k]:.3g} > {seeded.tolerance(k, self_gaps):.3g}"
+                        for k in names if gaps[k] > seeded.tolerance(k, self_gaps)]
+                limit = (f"max {seeded.tolerance(top, self_gaps):.3g}" if held
+                         else "none: printed")
+                if quantity.startswith("grad"):
+                    net = f"grad/{quantity.split()[1]}"
+                    limit += (f"; overall {gaps[net]:.6g}, limit "
+                              f"{seeded.tolerance(net, self_gaps):.3g}")
+                print(f"train full width {case.name}/{run}, {precision}, {quantity}: "
+                      f"max {worst:.6g}, mean {mean:.6g} (limit {limit}), {secs:.2f} s"
+                      + (f"; over: {over[0]}" if held and over else ""))
+                if held and over:
+                    failures.append(f"{case.name}/{run}, {precision}, {quantity}: "
+                                    + "; ".join(over[:5]))
+        return result
+
+    for case in seeded.TRAIN_CASES.values():
+        t0 = time.perf_counter()
+        state = seeded.train_case_state(case)
+        batch = seeded.train_batch(case)
+        check(seeded.checksum(seeded.flat_state(state))
+              == str(golden[f"{case.name}/weights_sha256"]),
+              f"{case.name}: the seeded weights differ from the golden's "
+              f"(numpy {np.__version__})")
+        check(seeded.checksum(batch) == str(golden[f"{case.name}/batch_sha256"]),
+              f"{case.name}: the seeded batch differs from the golden's")
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in batch.items()}
+        nets = seeded.build_train_case(case, FP32_POLICY, dev, state)
+        print(f"train full width {case.name}: weights and batch drawn, checked and "
+              f"loaded in {time.perf_counter() - t0:.1f} s")
+        out, secs = steps(case, nets, batch)
+        compare(case, "float32, TF32 off", out, secs, True)
+        cudnn.allow_tf32, matmul.allow_tf32 = True, False  # torch's defaults
+        try:
+            scoped, secs = steps(case, nets, batch)
+            compare(case, "float32 at torch's TF32 defaults", scoped, secs, True)
+            with without_backward_scope():
+                out, secs = steps(case, nets, batch)
+            compare(case, "float32 at torch's TF32 defaults without "
+                    "Policy.backward_scope", out, secs, False)
+        finally:
+            cudnn.allow_tf32, matmul.allow_tf32 = smoke_flags
+        for run in case.runs:
+            # What TF32 in the backward alone moves: the two runs' forwards
+            # are alike, whole gradients compared.
+            moved = seeded.train_gaps(seeded.comparable(out[run]),
+                                      seeded.comparable(scoped[run]))
+            for net in case.trained:
+                leaves = [v for k, v in moved.items() if k.startswith(f"grad/{net}/")]
+                print(f"train full width {case.name}/{run}: TF32 in the backward moves "
+                      f"{net}'s gradient by {moved[f'grad/{net}']:.6g} overall, "
+                      f"{max(leaves):.6g} in its worst leaf; the prediction by "
+                      f"{moved['pred']:.6g}")
+        del nets, out, scoped
+        torch.cuda.empty_cache()
+
+        nets = seeded.build_train_case(case, DEFAULT_POLICY, dev, state)
+        out, secs = steps(case, nets, batch)
+        plain = compare(case, "bf16" if case.name == "train_base"
+                        else "bf16, plain trunk", out, secs, False)
+        if case.name != "train_base":
+            frozen = nets["gbase"] if case.name == "train_hr" else nets["teacher"].gbase
+            frozen.g2d.use_chain_kernel = True
+            reset_counts()
+            out, secs = steps(case, nets, batch)
+            launches.append(counts())
+            k2 = compare(case, "bf16, trunk on K2", out, secs, False)
+            for run in case.runs:
+                # The images are held; a metric, a sum whose rounding errors
+                # cancel by chance, is printed.
+                for name in [k for k in plain[run] if k.startswith(("pred", "frozen", "metric/"))]:
+                    held = not name.startswith("metric/")
+                    limit = f"limit {2 * plain[run][name]:.6g}" if held else "printed"
+                    print(f"train full width {case.name}/{run}, bf16, {name}: trunk on K2 "
+                          f"{k2[run][name]:.6g}, plain trunk {plain[run][name]:.6g} ({limit})")
+                    if held and k2[run][name] > 2 * plain[run][name]:
+                        failures.append(f"{case.name}/{run}: K2's {name} gap "
+                                        f"{k2[run][name]:.3g} over twice the plain trunk's")
+            ran = launches[-1]["resblock_chain"]
+            if ran != case.batch:
+                failures.append(f"{case.name}: K2 ran {ran} times, want {case.batch}")
+        del nets, out, state, batch
+        torch.cuda.empty_cache()
+    check(not failures, "train full width: " + "; ".join(failures))
     return launches
 
 
@@ -3074,6 +3259,8 @@ def main():
     torch.cuda.empty_cache()
     paths = [launches]
     paths.extend(phase_full_width(torch, dev))
+    torch.cuda.empty_cache()
+    paths.extend(phase_train_full_width(torch, dev))
     paths.append(phase_hr(torch, dev)["launches"])
     torch.cuda.empty_cache()
     phase_student(torch, dev)
@@ -3111,7 +3298,7 @@ def main():
         paths.append(phase_driver_gaze(torch, dev, smi, work, result["bundle"],
                                        bare["base"])["launches"])
     # Launches over every driven path: stage 1, the full-width cases' bf16
-    # runs on K2, HR serving, serving after
+    # runs on K2 (serving and training), HR serving, serving after
     # stage-1 training, the HR step, the Student step and its teacher, the
     # three drivers (serving the stage-1 export included), the serving
     # commands (infer twice and reenact, in this process), the stage-3

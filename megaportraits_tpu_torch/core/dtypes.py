@@ -5,9 +5,11 @@ exponent range, so inference needs no loss scaling; norm layers reduce in
 float32 whatever the compute type.
 
 A float32 policy computes in float32 on the card too: its convolutions run
-under ``cudnn_float32`` (TF32 off), as JAX's float32 convolutions run at
-``Precision.HIGHEST`` where it matters; torch's default would let cuDNN
-round their inputs to TF32's 10-bit mantissa.
+under ``cudnn_float32`` (TF32 off), forward (``Policy.conv_scope``) and
+backward (``Policy.backward_scope``, around the trainers' gradient calls),
+as JAX's float32 convolutions run at ``Precision.HIGHEST`` where it
+matters; torch's default would let cuDNN round their inputs to TF32's
+10-bit mantissa.
 """
 
 from __future__ import annotations
@@ -55,6 +57,12 @@ class Policy:
         if self.compute_dtype == torch.float32:
             return cudnn_float32()
         return contextlib.nullcontext()
+
+    def backward_scope(self):
+        """Where autograd runs the backward of the policy's convolutions:
+        ``conv_scope`` again, entered around the gradient call, since
+        autograd runs the backward after each forward's scope has closed."""
+        return self.conv_scope()
 
 
 DEFAULT_POLICY = Policy()

@@ -98,9 +98,31 @@ def image_pyramid(x: torch.Tensor, scales: Sequence[float] = (0.5, 0.25)):
     return {str(s): anti_alias_downsample(x, s) for s in scales}
 
 
+class _Float32Blur(torch.autograd.Function):
+    """The depthwise blur of ``anti_alias_downsample`` with TF32 off in its
+    backward too: JAX's ``Precision.HIGHEST`` holds for the convolution's
+    transpose, and autograd runs the backward outside any scope the
+    forward opened (a bf16 training step opens none around it)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(k)
+        ctx.input_shape = x.shape
+        with cudnn_float32():
+            return F.conv2d(x, k, groups=k.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (k,) = ctx.saved_tensors
+        with cudnn_float32():
+            dx = torch.nn.grad.conv2d_input(ctx.input_shape, k, grad, groups=k.shape[0])
+        return dx, None
+
+
 def anti_alias_downsample(x: torch.Tensor, scale: float) -> torch.Tensor:
     """Band-limited downsample of NHWC images: zero-pad, depthwise gaussian
-    blur in float32, then nearest resize by `scale`."""
+    blur in float32 (TF32 off, forward and backward: JAX's
+    ``Precision.HIGHEST``), then nearest resize by `scale`."""
     if scale == 1.0:
         return x
     kernel, ka, kb = gaussian_kernel_2d(scale)
@@ -108,8 +130,7 @@ def anti_alias_downsample(x: torch.Tensor, scale: float) -> torch.Tensor:
     xf = to_channels_first(x.float())
     xf = F.pad(xf, (ka, kb, ka, kb))
     k = torch.as_tensor(kernel, device=x.device)[None, None].expand(c, 1, -1, -1)
-    with cudnn_float32():  # JAX's Precision.HIGHEST
-        out = to_channels_last(F.conv2d(xf, k.contiguous(), groups=c))
+    out = to_channels_last(_Float32Blur.apply(xf, k.contiguous()))
     h, w = out.shape[1], out.shape[2]
     out = nearest_resize(out, [int(h * scale), int(w * scale)], axes=[1, 2])
     return out.to(x.dtype)

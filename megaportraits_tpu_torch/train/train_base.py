@@ -18,6 +18,8 @@ One step does what the JAX step does, in its order:
   * G's gradients reach xhat through D, none reach D's parameters;
   * the D loss on the detached xhat with D's pre-step parameters;
   * both optimisers step after both gradients exist.
+Both gradients are taken under Gbase's ``Policy.backward_scope``: a float32
+step convolves without TF32 backward as well as forward.
 The step trains on PyTorch convolutions under autograd: train-mode
 BatchNorm cannot be folded into the kernels' epilogues, so ``G2d.trunk``
 and ``ResBlock2D`` bypass K1 and K2 when ``train`` is set, as the JAX
@@ -220,13 +222,15 @@ def make_train_step(ploss: PerceptualLoss, cfg: Config, unroll: int = 1,
         gbase, disc = g_state.model, d_state.model
         gbase.train()
         total, metrics, xhat = g_losses(gbase, disc, batch)
-        g_grads = torch.autograd.grad(total, g_state.params, allow_unused=True)
+        with gbase.policy.backward_scope():
+            g_grads = torch.autograd.grad(total, g_state.params, allow_unused=True)
 
         # D on the detached prediction, with its parameters as they were.
         xhat = xhat.detach()
         xs, xd = batch["source"], batch["driving"]
         loss_d = discriminator_loss(disc(xd, xs), disc(xhat, xs), "lsgan")
-        d_grads = torch.autograd.grad(loss_d, d_state.params, allow_unused=True)
+        with gbase.policy.backward_scope():
+            d_grads = torch.autograd.grad(loss_d, d_state.params, allow_unused=True)
         metrics["loss_D"] = loss_d
 
         g_state.apply_gradients(g_grads)

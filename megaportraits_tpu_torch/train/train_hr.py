@@ -16,7 +16,9 @@ One step does what the JAX step does:
   * the loss is w_sup x L1(pred01, target) + w_unsup x L1(cycle01, base) +
     w_per x the VGG19-only perceptual loss(pred01, target), where Genh's
     tanh output is compared in [0, 1]: pred01 = (xhat_hr + 1) / 2;
-  * AdamW on a cosine schedule over ``hr_epochs * steps_per_epoch`` steps.
+  * the gradient is taken under Genh's ``Policy.backward_scope`` (a
+    float32 Genh convolves without TF32 backward too), then AdamW on a
+    cosine schedule over ``hr_epochs * steps_per_epoch`` steps.
 With a mesh (``parallel/mesh.py``) each rank's batch is its rows of the
 global batch: Genh is distributed from rank 0 with its BatchNorms
 normalising over the data group (both passes), its optimiser averages the
@@ -101,7 +103,9 @@ def make_hr_train_step(genh: Genh, gbase: Gbase, ploss: PerceptualLoss, cfg: Con
         loss_unsup = torch.mean(torch.abs(cycle01 - xhat_base.float()))
         loss_per = ploss(pred01, target_hr)
         total = w_sup * loss_sup + w_unsup * loss_unsup + w_per * loss_per
-        state.apply_gradients(torch.autograd.grad(total, state.params, allow_unused=True))
+        with genh.policy.backward_scope():
+            grads = torch.autograd.grad(total, state.params, allow_unused=True)
+        state.apply_gradients(grads)
         metrics = {"loss_hr": total, "loss_sup": loss_sup, "loss_unsup": loss_unsup,
                    "loss_per": loss_per}
         return state, mean_over_ranks({k: v.detach() for k, v in metrics.items()}, mesh)

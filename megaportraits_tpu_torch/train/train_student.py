@@ -3,7 +3,9 @@
 
 The teacher (Gbase + Genh) makes the target for a fixed set of avatars;
 the Student, SPADE-conditioned on the avatar index, learns it by plain MSE.
-AdamW on a cosine schedule over ``student_epochs * steps_per_epoch`` steps.
+AdamW on a cosine schedule over ``student_epochs * steps_per_epoch`` steps;
+the gradient is taken under the Student's ``Policy.backward_scope``, so a
+float32 Student convolves without TF32 backward too.
 
 The teacher runs in ``.eval()`` under ``torch.no_grad()`` (JAX's
 ``stop_gradient``), so with ``G2d.use_chain_kernel`` set its G2d trunk
@@ -101,7 +103,9 @@ def make_student_train_step(student: Student, teacher: GHR, cfg: Config, mesh=No
         student.train()
         pred = student(xd, batch["avatar_index"], train=True)
         loss = torch.mean((pred.float() - target01) ** 2)
-        state.apply_gradients(torch.autograd.grad(loss, state.params, allow_unused=True))
+        with student.policy.backward_scope():
+            grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+        state.apply_gradients(grads)
         return state, mean_over_ranks({"loss_student": loss.detach()}, mesh)
 
     return step

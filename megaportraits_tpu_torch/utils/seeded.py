@@ -29,6 +29,15 @@ a CPU in a test's time. ``run_case`` runs a case on the port;
 output (a stride-8 subsample, the central 64x64 crop, the per-channel mean
 and std), which ``tests/torch_port_full_width.py`` writes from the JAX
 package and ``chip_smoke.py`` holds the card's outputs against.
+
+``TRAIN_CASES`` are three full-width training steps (stage 1, 2 and 3),
+each at 256 (Genh's target at 512), batch 2, on networks drawn with
+``numpy_state``. ``run_train_case`` takes a case's step on the port and
+returns its metrics, prediction, BatchNorm statistics and gradients;
+``train_samples`` keeps what ``tests/data/torch_port_train_goldens.npz``
+stores of them, ``train_gaps`` measures two runs' gaps and ``tolerance``
+gives each gap's limit from the golden's self-gaps (how far the port's
+own step moves when every weight moves by a relative 1e-6).
 """
 
 from __future__ import annotations
@@ -199,3 +208,391 @@ def summary(x: np.ndarray) -> np.ndarray:
     """[max, mean, std] of an intermediate tensor, float32."""
     x = np.asarray(x, np.float64)
     return np.array([x.max(), x.mean(), x.std()], np.float32)
+
+
+# ---------------------------------------------------------------------------
+# The full-width training cases
+# ---------------------------------------------------------------------------
+
+TRAIN_IMAGES = ("source", "driving", "source_next", "source_star", "driving_star")
+GRAD_SAMPLES = 256  # most values of a gradient leaf the golden keeps
+GRAD_FLOOR = 1e-6   # leaves whose norm is at most this share of the largest are skipped
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainCase:
+    """One full-width training case: one step of a stage's trainer on its
+    FULL networks, batch `batch` at `size` (Genh's target at `hr_size`)."""
+
+    name: str
+    weight_seed: int
+    image_seed: int
+    size: int = 256
+    batch: int = 2
+    hr_size: Optional[int] = None
+    avatar_index: Optional[Tuple[int, ...]] = None
+    num_avatars: int = 3
+
+    @property
+    def runs(self) -> Tuple[str, ...]:
+        """The steps of the case: the Student's takes one with the teacher
+        inline and one with 'target01' given, each from the drawn weights."""
+        return ("inline", "target01") if self.name == "train_student" else ("step",)
+
+    @property
+    def trained(self) -> Tuple[str, ...]:
+        """The networks whose gradients the step takes."""
+        return {"train_base": ("gbase", "disc"), "train_hr": ("genh",),
+                "train_student": ("student",)}[self.name]
+
+
+# Every width is the FULL arch's. The configs train at 512 (stage 1 and 3)
+# and 512 -> 1024 (stage 2), batch 4 (stage1-base.yaml); these cases cut
+# that to 256 (256 -> 512) and batch 2 so that the JAX package takes the
+# three steps on a CPU in a test's time. Batch 2 keeps what couples the
+# samples: train-mode BatchNorm over the batch, the cycle loss's negatives.
+TRAIN_CASES = {
+    # (d) stage 1: make_train_step on Gbase, the Discriminator and the
+    # perceptual loss (VGG19 + LPIPS), Config() loss weights, lsgan.
+    "train_base": TrainCase("train_base", weight_seed=6, image_seed=7),
+    # (e) stage 2: make_hr_train_step, Genh trains behind a frozen Gbase on
+    # running statistics.
+    "train_hr": TrainCase("train_hr", weight_seed=9, image_seed=10, hr_size=512),
+    # (f) stage 3: make_student_train_step, the GHR teacher inline, then
+    # with 'target01' given; 3 avatars, indices [2, 0].
+    "train_student": TrainCase("train_student", weight_seed=12, image_seed=13,
+                               avatar_index=(2, 0)),
+}
+
+
+def _train_networks(case: TrainCase, policy, device) -> Dict[str, nn.Module]:
+    from megaportraits_tpu_torch.core.arch import FULL
+    from megaportraits_tpu_torch.losses.perceptual import DEFAULT_WEIGHTS, PerceptualLoss
+    from megaportraits_tpu_torch.models.discriminator import Discriminator
+    from megaportraits_tpu_torch.models.gbase import Gbase
+    from megaportraits_tpu_torch.models.genh import GHR, Genh
+    from megaportraits_tpu_torch.models.student import Student
+    from megaportraits_tpu_torch.train.train_hr import HR_LOSS_WEIGHTS
+
+    kw = dict(policy=policy, arch=FULL, device=device)
+    if case.name == "train_base":
+        # init_states' remat default at 256, as JAX's.
+        return {"gbase": Gbase(remat="selective", **kw), "disc": Discriminator(**kw),
+                "ploss": PerceptualLoss(DEFAULT_WEIGHTS, **kw)}
+    if case.name == "train_hr":
+        return {"gbase": Gbase(**kw), "genh": Genh(**kw),
+                "ploss": PerceptualLoss(HR_LOSS_WEIGHTS, **kw)}
+    return {"teacher": GHR(**kw), "student": Student(case.num_avatars, **kw)}
+
+
+def train_case_state(case: TrainCase) -> Dict[str, Dict[str, np.ndarray]]:
+    """``numpy_state`` of each of the case's FULL networks, the i-th (in
+    ``_train_networks``' order) drawn from seed ``weight_seed + i``."""
+    from megaportraits_tpu_torch.core.dtypes import FP32_POLICY
+
+    nets = _train_networks(case, FP32_POLICY, "meta")
+    return {name: numpy_state(net, case.weight_seed + i)
+            for i, (name, net) in enumerate(nets.items())}
+
+
+def flat_state(state: Mapping[str, Mapping[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """A case's draws as one mapping, '<network>/<key>'."""
+    return {f"{net}/{k}": v for net, sd in state.items() for k, v in sd.items()}
+
+
+def train_batch(case: TrainCase) -> Dict[str, np.ndarray]:
+    """The case's batch as numpy: ``seeded_images`` from ``image_seed`` (and
+    ``image_seed + 1`` for Genh's 'target_hr' and the Student's
+    'target01'), the Student's 'avatar_index' as int64."""
+    b, s = case.batch, case.size
+    if case.name == "train_base":
+        images = seeded_images(case.image_seed, len(TRAIN_IMAGES) * b, s)
+        return {k: images[i * b:(i + 1) * b] for i, k in enumerate(TRAIN_IMAGES)}
+    images = seeded_images(case.image_seed, 2 * b, s)
+    batch = {"source": images[:b], "driving": images[b:]}
+    if case.name == "train_hr":
+        batch["target_hr"] = seeded_images(case.image_seed + 1, b, case.hr_size)
+    else:
+        batch["target01"] = seeded_images(case.image_seed + 1, b, s)
+        batch["avatar_index"] = np.asarray(case.avatar_index, np.int64)
+    return batch
+
+
+def build_train_case(case: TrainCase, policy, device="cpu",
+                     state: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
+                     chain_kernel: bool = False) -> Dict[str, nn.Module]:
+    """The case's FULL networks with `policy` on `device`, their weights
+    `state` (by default ``train_case_state(case)``): the loss nets frozen,
+    the frozen Gbase (stage 2, and the teacher's in stage 3) in eval mode,
+    its G2d trunk on K2 when `chain_kernel` is set."""
+    nets = _train_networks(case, policy, "cpu")
+    state = train_case_state(case) if state is None else state
+    for name, net in nets.items():
+        net.load_state_dict({k: torch.from_numpy(v) for k, v in state[name].items()})
+        net.to(device)
+    if "ploss" in nets:
+        nets["ploss"].requires_grad_(False).eval()
+    frozen = {"train_hr": "gbase", "train_student": "teacher"}.get(case.name)
+    if frozen:
+        nets[frozen].eval()
+        g2d = nets[frozen].g2d if frozen == "gbase" else nets[frozen].gbase.g2d
+        g2d.use_chain_kernel = chain_kernel
+    return nets
+
+
+def perturb_weights(nets: Mapping[str, nn.Module], seed: int = 0,
+                    per_channel: bool = False) -> None:
+    """Scale every weight of every network of a case, frozen ones too, by
+    (1 + 1e-6 x N(0, 1)), drawn with numpy from `seed` in
+    ``_train_networks``' order and parameter order, one factor an element
+    or, with `per_channel`, one a slice of the leading (output) axis: how
+    far float32 rounding alone moves each quantity of a step (its
+    self-gap). The frozen networks count: another platform rounds the
+    teacher's target and the frozen Gbase's image apart too; so do
+    per-channel factors, which round alike over a whole channel (a
+    BatchNorm's rsqrt, a folded scale)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for net in nets.values():
+            for p in net.parameters():
+                shape = ((p.shape[0],) + (1,) * (p.ndim - 1) if per_channel and p.ndim
+                         else tuple(p.shape))
+                noise = rng.standard_normal(shape).astype(np.float32)
+                p.mul_(1.0 + 1e-6 * torch.from_numpy(noise).to(p.device, p.dtype))
+
+
+def _first_call(module: nn.Module, output: bool = True):
+    """A forward hook that keeps what `module`'s first call returned (or,
+    with ``output=False``, its first argument); returns (list, handle)."""
+    kept = []
+
+    def keep(x):
+        if not kept:
+            kept.append(x.detach())
+
+    if output:
+        return kept, module.register_forward_hook(lambda _, __, out: keep(out))
+    return kept, module.register_forward_pre_hook(lambda _, args: keep(args[0]))
+
+
+def run_train_case(case: TrainCase, nets: Mapping[str, nn.Module],
+                   batch: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """The case's steps on the port, each from the networks' weights as they
+    are on entry (the trained networks are restored after each step). For
+    each run: 'metrics' (floats), 'pred' (the step's prediction, float32
+    numpy: xhat for stage 1, Genh's first pass for stage 2, the Student's
+    output for stage 3), 'stats' (the trained networks' BatchNorm running
+    statistics after the step), 'grads' ({network: {key: gradient}} of the
+    trainable parameters) and, where a frozen network feeds the step,
+    'frozen': its output as the step takes it (stage 2: the frozen Gbase's
+    image, upscaled, Genh's input; stage 3: the teacher's target), numpy
+    float32. `batch` holds the case's ``train_batch`` as tensors on the
+    networks' device."""
+    from megaportraits_tpu_torch.core.config import Config
+    from megaportraits_tpu_torch.train.state import (
+        TrainState,
+        make_optimizer,
+        trainable_parameters,
+    )
+    from megaportraits_tpu_torch.train.train_base import make_train_step
+    from megaportraits_tpu_torch.train.train_hr import make_hr_train_step
+    from megaportraits_tpu_torch.train.train_student import make_student_train_step
+
+    cfg = Config()
+    before = {name: {k: v.clone() for k, v in nets[name].state_dict().items()}
+              for name in case.trained}
+    states = {name: TrainState(nets[name], make_optimizer(nets[name], cfg.training.lr, 1))
+              for name in case.trained}
+
+    def outcome(metrics, pred, frozen=None):
+        out = {"metrics": {k: float(v) for k, v in metrics.items()},
+               "pred": pred.detach().float().cpu().numpy().copy(), "stats": {},
+               "grads": {}}
+        if frozen is not None:
+            out["frozen"] = frozen.float().cpu().numpy().copy()
+        for name in case.trained:
+            out["stats"].update({f"{name}/{k}": v.float().cpu().numpy().copy()
+                                 for k, v in nets[name].named_buffers()
+                                 if k.endswith(("running_mean", "running_var"))})
+            out["grads"][name] = {k: p.grad.float().cpu().numpy()
+                                  for k, p in trainable_parameters(nets[name])}
+        for name in case.trained:
+            nets[name].load_state_dict(before[name])
+            for p in nets[name].parameters():
+                p.grad = None
+        return out
+
+    if case.name == "train_base":
+        step = make_train_step(nets["ploss"], cfg)
+        _, _, metrics, xhat = step(states["gbase"], states["disc"], dict(batch))
+        return {"step": outcome(metrics, xhat)}
+    if case.name == "train_hr":
+        step = make_hr_train_step(nets["genh"], nets["gbase"], nets["ploss"], cfg)
+        kept, handle = _first_call(nets["genh"])
+        base, base_handle = _first_call(nets["genh"], output=False)
+        try:
+            _, metrics = step(states["genh"], dict(batch))
+        finally:
+            handle.remove()
+            base_handle.remove()
+        return {"step": outcome(metrics, kept[0], base[0])}
+    step = make_student_train_step(nets["student"], nets["teacher"], cfg)
+    out = {}
+    for run in case.runs:
+        keys = (("source", "driving", "avatar_index") if run == "inline"
+                else ("driving", "avatar_index", "target01"))
+        kept, handle = _first_call(nets["student"])
+        target, target_handle = _first_call(nets["teacher"].genh)
+        try:
+            _, metrics = step(states["student"], {k: batch[k] for k in keys})
+        finally:
+            handle.remove()
+            target_handle.remove()
+        # The teacher's target as make_teacher_forward makes it.
+        out[run] = outcome(metrics, kept[0],
+                           (target[0].float() + 1.0) * 0.5 if target else None)
+        states["student"] = TrainState(nets["student"], make_optimizer(
+            nets["student"], cfg.training.lr, 1))
+    return out
+
+
+# What the golden keeps of a run, and the gaps between two runs.
+
+FLOORS = {"metric": 1e-4, "pred": 1e-4, "frozen": 1e-4, "stats": 1e-4, "grad": 1e-4}
+
+
+def _grad_sample(g: np.ndarray) -> np.ndarray:
+    """At most ``GRAD_SAMPLES`` values of a gradient leaf, at a fixed stride
+    through its flat (port) layout, NaN-padded to ``GRAD_SAMPLES``."""
+    flat = np.asarray(g, np.float32).ravel()
+    stride = -(-flat.size // GRAD_SAMPLES)
+    out = np.full(GRAD_SAMPLES, np.nan, np.float32)
+    picked = flat[::stride]
+    out[:picked.size] = picked
+    return out
+
+
+def train_samples(outcome: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """What the golden keeps of one run of ``run_train_case``: the metrics,
+    ``samples`` of the prediction (and of the frozen network's output),
+    every BatchNorm running statistic, and per gradient leaf its norm and
+    ``_grad_sample``."""
+    out = {"metric_names": np.array(sorted(outcome["metrics"])),
+           "metrics": np.array([outcome["metrics"][k] for k in sorted(outcome["metrics"])],
+                               np.float64)}
+    out.update({f"pred/{k}": v for k, v in samples(outcome["pred"]).items()})
+    if "frozen" in outcome:
+        out.update({f"frozen/{k}": v for k, v in samples(outcome["frozen"]).items()})
+    names = sorted(outcome["stats"])
+    out["stat_names"] = np.array(names)
+    out["stat_sizes"] = np.array([outcome["stats"][k].size for k in names], np.int64)
+    out["stats"] = (np.concatenate([outcome["stats"][k].ravel() for k in names])
+                    .astype(np.float32) if names else np.zeros(0, np.float32))
+    for net, grads in outcome["grads"].items():
+        keys = list(grads)
+        out[f"grad/{net}/names"] = np.array(keys)
+        out[f"grad/{net}/norm"] = np.array(
+            [np.linalg.norm(grads[k].astype(np.float64)) for k in keys])
+        out[f"grad/{net}/sub"] = np.stack([_grad_sample(grads[k]) for k in keys])
+    return out
+
+
+def comparable(outcome: Mapping[str, object]) -> Dict[str, object]:
+    """A run in the form ``train_gaps`` compares: from ``run_train_case``'s
+    outcome (the whole prediction, every gradient value) or from
+    ``train_samples``' arrays (the golden's samples)."""
+    if "metric_names" not in outcome:
+        grads = outcome["grads"]
+        out = {"metrics": dict(outcome["metrics"]), "pred": outcome["pred"],
+               "stats": {k: np.asarray(v) for k, v in outcome["stats"].items()},
+               "grads": {net: {k: (g, float(np.linalg.norm(g.astype(np.float64))))
+                               for k, g in leaves.items()}
+                         for net, leaves in grads.items()}}
+        if "frozen" in outcome:
+            out["frozen"] = outcome["frozen"]
+        return out
+    stats, at = {}, 0
+    for name, size in zip(outcome["stat_names"], outcome["stat_sizes"]):
+        stats[str(name)] = outcome["stats"][at:at + size]
+        at += size
+    nets = {k.split("/")[1] for k in outcome if k.startswith("grad/")}
+    grads = {}
+    for net in sorted(nets):
+        sub, norm = outcome[f"grad/{net}/sub"], outcome[f"grad/{net}/norm"]
+        grads[net] = {str(k): (s[~np.isnan(s)], float(v))
+                      for k, s, v in zip(outcome[f"grad/{net}/names"], sub, norm)}
+    out = {"metrics": {str(k): float(v) for k, v in
+                       zip(outcome["metric_names"], outcome["metrics"])},
+           "stats": stats, "grads": grads}
+    for name in ("pred", "frozen"):
+        if f"{name}/sub" in outcome:
+            out[name] = np.concatenate([outcome[f"{name}/sub"].ravel(),
+                                        outcome[f"{name}/crop"].ravel()])
+    return out
+
+
+def train_gaps(got: Mapping[str, object], want: Mapping[str, object]
+               ) -> Dict[str, float]:
+    """The gaps of `got` against `want` (both ``comparable``): per metric the
+    relative gap ('metric/<name>'); the prediction's max abs ('pred') and
+    mean abs ('pred_mean'), and the frozen network's output's where the run
+    has one ('frozen', 'frozen_mean'); the largest and mean absolute gap of the
+    BatchNorm running statistics ('stats', 'stats_mean'); per trained
+    network the relative Frobenius
+    gap of its gradient over every leaf ('grad/<net>') and per leaf
+    ('grad/<net>/<key>'), over the leaves whose norm in `want` is above
+    ``GRAD_FLOOR`` of the largest."""
+    gaps = {}
+    if set(got["metrics"]) != set(want["metrics"]):
+        raise ValueError(f"metrics {sorted(got['metrics'])} against {sorted(want['metrics'])}")
+    for k, w in want["metrics"].items():
+        gaps[f"metric/{k}"] = abs(got["metrics"][k] - w) / max(abs(w), 1e-6)
+    for name in ("pred", "frozen"):
+        if name in want:
+            diff = np.abs(np.asarray(got[name], np.float64)
+                          - np.asarray(want[name], np.float64))
+            gaps[name], gaps[f"{name}_mean"] = float(diff.max()), float(diff.mean())
+    if set(got["stats"]) != set(want["stats"]):
+        raise ValueError("the two runs have different BatchNorm statistics")
+    diff = [np.abs(got["stats"][k] - w).ravel() for k, w in want["stats"].items()]
+    diff = np.concatenate(diff) if diff else np.zeros(1)
+    gaps["stats"], gaps["stats_mean"] = float(diff.max()), float(diff.mean())
+    for net, leaves in want["grads"].items():
+        if set(got["grads"][net]) != set(leaves):
+            raise ValueError(f"{net}: the two runs have different gradient leaves")
+        floor = GRAD_FLOOR * max(norm for _, norm in leaves.values())
+        num = den = 0.0
+        for k, (w, norm) in leaves.items():
+            if norm <= floor:
+                continue
+            g = np.asarray(got["grads"][net][k][0], np.float64)
+            w = np.asarray(w, np.float64)
+            d2, w2 = float(np.sum((g - w) ** 2)), float(np.sum(w ** 2))
+            gaps[f"grad/{net}/{k}"] = (d2 / w2) ** 0.5 if w2 else 0.0
+            num, den = num + d2, den + w2
+        gaps[f"grad/{net}"] = (num / den) ** 0.5
+    return gaps
+
+
+def tolerance(name: str, self_gaps: Mapping[str, float]) -> float:
+    """The limit of gap `name`: the larger of twice the port's own
+    self-gap and the quantity's floor (``FLOORS``)."""
+    floor = FLOORS[name.split("/")[0].removesuffix("_mean")]
+    return max(2.0 * self_gaps.get(name, 0.0), floor)
+
+
+def golden_run(golden: Mapping[str, np.ndarray], name: str, run: str
+               ) -> Dict[str, np.ndarray]:
+    """A run's arrays in the training golden (``train_samples``' names)."""
+    prefix = f"{name}/{run}/"
+    return {k[len(prefix):]: v for k, v in golden.items()
+            if k.startswith(prefix) and "self_gap" not in k}
+
+
+def golden_self_gaps(golden: Mapping[str, np.ndarray], name: str, run: str,
+                     whole: bool = False) -> Dict[str, float]:
+    """{quantity: self-gap} of a run as the training golden keeps them:
+    measured on the golden's samples, or with `whole` on whole outcomes."""
+    prefix, form = f"{name}/{run}/", "whole" if whole else "samples"
+    return {str(k): float(v) for k, v in zip(golden[prefix + f"self_gap_names/{form}"],
+                                             golden[prefix + f"self_gaps/{form}"])}
