@@ -1,0 +1,8 @@
+"""Device milliseconds a served frame in Genh: the operations launched
+inside the ``genh`` range, over the frames the profiled steps served.
+Nothing where the range never opened."""
+
+
+def read(ctx):
+    s = ctx.layers.range_device_s("genh")
+    return None if s is None or not ctx.frames else s * 1e3 / ctx.frames
