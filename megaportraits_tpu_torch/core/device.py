@@ -21,3 +21,13 @@ def resolve_device(device: Union[str, torch.device] = DEFAULT_DEVICE) -> torch.d
             "no CUDA device is available; pass device='cpu' to run on the host"
         )
     return dev
+
+
+def upload(data, device: Union[str, torch.device], site, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(data, dtype, device)`` for host data (a numpy array
+    or a list) made into a tensor inside a call; adds one to
+    ``site.host_uploads``, the counter of the function that uploads
+    (``utils/profiling.counters``). It counts on the CPU too, where nothing
+    crosses to a card."""
+    site.host_uploads += 1
+    return torch.as_tensor(data, dtype=dtype, device=device)

@@ -65,6 +65,16 @@ class Policy:
         return self.conv_scope()
 
 
+def cast_param(p: torch.Tensor, dtype: torch.dtype, site) -> torch.Tensor:
+    """Parameter `p` in `dtype` for one call. A cast that makes a new tensor
+    adds one to ``site.param_casts``, the counter of the layer that casts
+    (``utils/profiling.counters``); one in `dtype` already is `p` itself."""
+    if p.dtype == dtype:
+        return p
+    site.param_casts += 1
+    return p.to(dtype)
+
+
 DEFAULT_POLICY = Policy()
 FP32_POLICY = Policy(compute_dtype=torch.float32)
 

@@ -17,6 +17,7 @@ from megaportraits_tpu_torch.core.arch import FULL, Arch
 from megaportraits_tpu_torch.core.device import DEFAULT_DEVICE
 from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from megaportraits_tpu_torch.models.gbase import Gbase, build_gbase
+from megaportraits_tpu_torch.utils.profiling import annotate
 
 BN_MODES = ("running", "batch")
 
@@ -44,13 +45,15 @@ class ReenactmentSession:
     @torch.no_grad()
     def set_source(self, xs: torch.Tensor) -> None:
         """xs: [B, H, W, 3] source image(s)."""
-        self.source_state = self.model.encode_source(xs.to(self.device),
-                                                     self.train_bn)
+        with annotate("session.encode_source"):
+            self.source_state = self.model.encode_source(xs.to(self.device),
+                                                         self.train_bn)
 
     @torch.no_grad()
     def __call__(self, xd: torch.Tensor) -> torch.Tensor:
         """xd: [B, H, W, 3] driving frame -> [B, H, W, 3] reenacted frame."""
         if self.source_state is None:
             raise RuntimeError("call set_source first")
-        return self.model.drive(self.source_state, xd.to(self.device),
-                                self.train_bn)
+        with annotate("session.step"):
+            return self.model.drive(self.source_state, xd.to(self.device),
+                                    self.train_bn)

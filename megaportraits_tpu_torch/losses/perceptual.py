@@ -33,6 +33,7 @@ from megaportraits_tpu_torch.nn.layers import (
     to_channels_first,
     to_channels_last,
 )
+from megaportraits_tpu_torch.utils.profiling import annotate
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -172,36 +173,38 @@ class PerceptualLoss(nn.Module):
 
     def forward(self, predicted: torch.Tensor, target: torch.Tensor,
                 use_fm_loss: bool = False) -> torch.Tensor:
-        w = self.weights
-        p = self.policy
-        pred_n = (predicted.float() - self.mean) / self.std
-        tgt_n = (target.float() - self.mean) / self.std
+        """The loss of `predicted` against `target`: one span."""
+        with annotate("losses.perceptual"):
+            w = self.weights
+            p = self.policy
+            pred_n = (predicted.float() - self.mean) / self.std
+            tgt_n = (target.float() - self.mean) / self.std
 
-        total = torch.zeros((), dtype=torch.float32, device=predicted.device)
-        if use_fm_loss and self.vgg19 is None:
-            raise ValueError("use_fm_loss needs the VGG19 trunk: build the loss "
-                             "with use_fm_loss=True")
-        if self.vgg19 is not None:
-            fp = self.vgg19(p.cast_to_compute(pred_n))
-            ft = self.vgg19(p.cast_to_compute(tgt_n))
-            vgg_loss = sum(torch.mean(torch.abs(a.float() - b.float()))
-                           for a, b in zip(fp, ft))
-            total = total + w.get("vgg19", 0.0) * vgg_loss
-            if use_fm_loss:
-                # Feature-matching variant: the target features detached.
-                total = total + sum(
-                    torch.mean(torch.abs(a.float() - b.float().detach()))
-                    for a, b in zip(fp, ft))
-        if self.vggface is not None:
-            _, fa = self.vggface(p.cast_to_compute(pred_n), return_taps=True)
-            _, fb = self.vggface(p.cast_to_compute(tgt_n), return_taps=True)
-            face_loss = sum(torch.mean(torch.abs(a.float() - b.float()))
-                            for a, b in zip(fa, fb))
-            total = total + w["vggface"] * face_loss
-        if self.lpips is not None:
-            total = total + w["lpips"] * torch.mean(self.lpips(pred_n, tgt_n))
-        # The reference's gaze slot: a constant.
-        return total + float(w.get("gaze", 0.0))
+            total = torch.zeros((), dtype=torch.float32, device=predicted.device)
+            if use_fm_loss and self.vgg19 is None:
+                raise ValueError("use_fm_loss needs the VGG19 trunk: build the loss "
+                                 "with use_fm_loss=True")
+            if self.vgg19 is not None:
+                fp = self.vgg19(p.cast_to_compute(pred_n))
+                ft = self.vgg19(p.cast_to_compute(tgt_n))
+                vgg_loss = sum(torch.mean(torch.abs(a.float() - b.float()))
+                               for a, b in zip(fp, ft))
+                total = total + w.get("vgg19", 0.0) * vgg_loss
+                if use_fm_loss:
+                    # Feature-matching variant: the target features detached.
+                    total = total + sum(
+                        torch.mean(torch.abs(a.float() - b.float().detach()))
+                        for a, b in zip(fp, ft))
+            if self.vggface is not None:
+                _, fa = self.vggface(p.cast_to_compute(pred_n), return_taps=True)
+                _, fb = self.vggface(p.cast_to_compute(tgt_n), return_taps=True)
+                face_loss = sum(torch.mean(torch.abs(a.float() - b.float()))
+                                for a, b in zip(fa, fb))
+                total = total + w["vggface"] * face_loss
+            if self.lpips is not None:
+                total = total + w["lpips"] * torch.mean(self.lpips(pred_n, tgt_n))
+            # The reference's gaze slot: a constant.
+            return total + float(w.get("gaze", 0.0))
 
 
 def build_perceptual_loss(arch: Union[str, Arch] = "full",

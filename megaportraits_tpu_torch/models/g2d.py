@@ -26,6 +26,7 @@ from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
 from megaportraits_tpu_torch.nn.blocks import OperandCache, ResBlock2D
 from megaportraits_tpu_torch.nn.layers import GroupNorm32, TorchConv
 from megaportraits_tpu_torch.ops.resize import linear_resize
+from megaportraits_tpu_torch.utils.profiling import annotate
 
 
 def _up2(x: torch.Tensor) -> torch.Tensor:
@@ -100,9 +101,14 @@ class G2d(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = self.trunk(self.conv1x1(self.reshape_conv(x)), train)
-        x = self.up1(_up2(x), train)
-        x = self.up2(_up2(x), train)
-        x = self.up3(_up2(x), train)
-        x = self.final_conv(torch.relu(self.norm(x)))
-        return torch.sigmoid(x.float())
+        """The 1x1 head, the trunk and the decoder, each a span."""
+        with annotate("g2d.head"):
+            x = self.conv1x1(self.reshape_conv(x))
+        with annotate("g2d.trunk"):
+            x = self.trunk(x, train)
+        with annotate("g2d.decoder"):
+            x = self.up1(_up2(x), train)
+            x = self.up2(_up2(x), train)
+            x = self.up3(_up2(x), train)
+            x = self.final_conv(torch.relu(self.norm(x)))
+            return torch.sigmoid(x.float())

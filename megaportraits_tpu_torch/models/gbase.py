@@ -48,6 +48,7 @@ from megaportraits_tpu_torch.models.warpgen import WarpGenerator
 from megaportraits_tpu_torch.nn.layers import calibrate_batch_norm_with, init_parameters
 from megaportraits_tpu_torch.ops.resize import anti_alias_downsample
 from megaportraits_tpu_torch.ops.warp import apply_warping_field
+from megaportraits_tpu_torch.utils.profiling import annotate
 
 PYRAMID_SCALES = (0.5, 0.25)
 REMAT_MODULES = {
@@ -152,12 +153,17 @@ class Gbase(nn.Module):
         return {"vc2d": self._run("g3d", vc), "es": es}
 
     def drive(self, source_state, xd: torch.Tensor, train: bool = False):
-        """Per-driving-frame path given a precomputed source state."""
-        rd, td, zd = self._run("motion_encoder", xd, train)
-        w_c2d = self._run("warp_generator_c2d", rd, td, zd, source_state["es"])
-        vc2d_warped = apply_warping_field(source_state["vc2d"], w_c2d,
-                                          self.warp_normalize_mode)
-        return self._run("g2d", vc2d_warped.sum(dim=1), train)
+        """Per-driving-frame path given a precomputed source state; each
+        stage a span (``utils/profiling.annotate``)."""
+        with annotate("gbase.emtn"):
+            rd, td, zd = self._run("motion_encoder", xd, train)
+        with annotate("gbase.warpgen_c2d"):
+            w_c2d = self._run("warp_generator_c2d", rd, td, zd, source_state["es"])
+        with annotate("gbase.warp"):
+            projected = apply_warping_field(source_state["vc2d"], w_c2d,
+                                            self.warp_normalize_mode).sum(dim=1)
+        with annotate("gbase.g2d"):
+            return self._run("g2d", projected, train)
 
     def pairwise_outputs(self, i1: torch.Tensor, i2: torch.Tensor,
                          train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -27,6 +27,7 @@ from megaportraits_tpu_torch.models.gbase import Gbase
 from megaportraits_tpu_torch.nn.blocks import ResBlock2D
 from megaportraits_tpu_torch.nn.layers import TorchConv, init_parameters
 from megaportraits_tpu_torch.ops.resize import avg_pool_2d
+from megaportraits_tpu_torch.utils.profiling import annotate
 
 
 class Genh(nn.Module):
@@ -50,18 +51,20 @@ class Genh(nn.Module):
         self.dec_conv = TorchConv(c, 3, (7, 7), padding=3, **kw)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """x [B, H, W, 3] -> [B, H, W, 3] in [-1, 1]; H and W divisible by 8."""
-        x = self.enc_conv(self.policy.cast_to_compute(x))
-        for i, name in enumerate(self.enc_names):
-            if i > 0:
-                x = avg_pool_2d(x)
-            x = getattr(self, name)(x, train)
-        for name in self.mid_names:
-            x = getattr(self, name)(x, train)
-        for name in self.dec_names:
-            x = getattr(self, name)(_up2(x), train)
-        x = self.dec_conv(x)
-        return torch.tanh(x.float())
+        """x [B, H, W, 3] -> [B, H, W, 3] in [-1, 1]; H and W divisible by 8.
+        One span, ``genh.forward``."""
+        with annotate("genh.forward"):
+            x = self.enc_conv(self.policy.cast_to_compute(x))
+            for i, name in enumerate(self.enc_names):
+                if i > 0:
+                    x = avg_pool_2d(x)
+                x = getattr(self, name)(x, train)
+            for name in self.mid_names:
+                x = getattr(self, name)(x, train)
+            for name in self.dec_names:
+                x = getattr(self, name)(_up2(x), train)
+            x = self.dec_conv(x)
+            return torch.tanh(x.float())
 
 
 class GHR(nn.Module):

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from megaportraits_tpu_torch.core.arch import FULL, Arch
-from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
+from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy, cast_param
 from megaportraits_tpu_torch.nn.blocks import ResBlock3DAdaptive
 from megaportraits_tpu_torch.nn.layers import AffineGroupNorm, TorchConv
 from megaportraits_tpu_torch.ops.affine_grid import compute_rt_warp
@@ -53,7 +53,10 @@ class FlowField(nn.Module):
 
 
 class WarpGenerator(nn.Module):
-    """S2C (invert=True) / C2D (invert=False) warp generator."""
+    """S2C (invert=True) / C2D (invert=False) warp generator;
+    ``param_casts`` counts the casts of ``adaptive_matrix_gamma``."""
+
+    param_casts = 0
 
     def __init__(self, invert: bool, grid_size: int = 0,
                  policy: Policy = DEFAULT_POLICY, arch: Arch = FULL, device=None):
@@ -73,7 +76,7 @@ class WarpGenerator(nn.Module):
     def forward(self, rotation: torch.Tensor, translation: torch.Tensor,
                 z: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
         cdt = self.policy.compute_dtype
-        z_sum = (z + e).to(cdt) @ self.adaptive_matrix_gamma.to(cdt)
+        z_sum = (z + e).to(cdt) @ cast_param(self.adaptive_matrix_gamma, cdt, WarpGenerator)
         w_em = self.flowfield(z_sum)
         w_rt = compute_rt_warp(rotation.float(), translation.float(),
                                invert=self.invert, grid_size=self.grid_size)

@@ -128,8 +128,11 @@ class OperandCache:
     device and dtype it had then (and `extra` is unchanged), else builds
     anew, without autograd. ``load_state_dict``, a BatchNorm calibration and
     an optimiser step write in place and move ``_version``; ``.to()`` and an
-    assignment to ``.data`` move ``data_ptr``. ``folds`` counts the builds.
+    assignment to ``.data`` move ``data_ptr``. ``folds`` counts the builds,
+    ``OperandCache.all_folds`` those of every cache.
     """
+
+    all_folds = 0
 
     def __init__(self):
         self.folds = 0
@@ -144,6 +147,7 @@ class OperandCache:
                 self._value = build()
             self._key = key
             self.folds += 1
+            OperandCache.all_folds += 1
         return self._value
 
 

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
+from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy, cast_param
 from megaportraits_tpu_torch.parallel.mesh import all_reduce_sum
 
 
@@ -73,8 +73,11 @@ class TorchConv(nn.Module):
     2D (NHWC) or 3D (NDHWC) by ``len(kernel_size)``; ``strides`` and
     ``padding`` are torch's symmetric ints. Input, weight and bias are cast to the compute
     dtype, as flax's ``nn.Conv(dtype=...)`` does; a float32 policy convolves
-    with TF32 off (``Policy.conv_scope``).
+    with TF32 off (``Policy.conv_scope``). ``param_casts`` counts the casts
+    of weight and bias (``core/dtypes.cast_param``).
     """
+
+    param_casts = 0
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int], strides: int = 1,
@@ -105,9 +108,10 @@ class TorchConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.policy.compute_dtype
         conv = F.conv2d if self.nd == 2 else F.conv3d
-        bias = None if self.bias is None else self.bias.to(cdt)
+        bias = None if self.bias is None else cast_param(self.bias, cdt, TorchConv)
         with self.policy.conv_scope():
-            y = conv(to_channels_first(x.to(cdt)), self.weight.to(cdt), bias,
+            y = conv(to_channels_first(x.to(cdt)), cast_param(self.weight, cdt, TorchConv),
+                     bias,
                      self.strides, self.padding, 1, self.groups)
         return to_channels_last(y)
 
@@ -117,7 +121,10 @@ class WSConv(nn.Module):
 
     The kernel is standardized per output filter in float32: subtract the
     mean over all input taps, divide by the *unbiased* std + 1e-5.
+    ``param_casts`` counts the casts of the standardized weight and the bias.
     """
+
+    param_casts = 0
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int], padding: int = 0,
@@ -149,12 +156,16 @@ class WSConv(nn.Module):
         conv = F.conv2d if self.nd == 2 else F.conv3d
         with self.policy.conv_scope():
             y = conv(to_channels_first(x.to(cdt)),
-                     self.standardized_weight().to(cdt), None, 1, self.padding)
-        return to_channels_last(y) + self.bias.to(cdt)
+                     cast_param(self.standardized_weight(), cdt, WSConv), None, 1,
+                     self.padding)
+        return to_channels_last(y) + cast_param(self.bias, cdt, WSConv)
 
 
 class TorchDense(nn.Module):
-    """Linear with torch default init and the policy dtypes."""
+    """Linear with torch default init and the policy dtypes; ``param_casts``
+    counts the casts of weight and bias."""
+
+    param_casts = 0
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  policy: Policy = DEFAULT_POLICY, device=None):
@@ -171,8 +182,8 @@ class TorchDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.policy.compute_dtype
-        bias = None if self.bias is None else self.bias.to(cdt)
-        return F.linear(x.to(cdt), self.weight.to(cdt), bias)
+        bias = None if self.bias is None else cast_param(self.bias, cdt, TorchDense)
+        return F.linear(x.to(cdt), cast_param(self.weight, cdt, TorchDense), bias)
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +219,10 @@ class GroupNorm32(nn.Module):
 
 
 class AffineGroupNorm(nn.Module):
-    """nn.GroupNorm(groups, channels) with learned per-channel scale/bias."""
+    """nn.GroupNorm(groups, channels) with learned per-channel scale/bias;
+    ``param_casts`` counts their casts to the input's dtype."""
+
+    param_casts = 0
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
                  policy: Policy = DEFAULT_POLICY, device=None):
@@ -227,12 +241,16 @@ class AffineGroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         normed = group_norm(x, self.num_groups, self.eps)
-        return normed * self.weight.to(normed.dtype) + self.bias.to(normed.dtype)
+        return (normed * cast_param(self.weight, normed.dtype, AffineGroupNorm)
+                + cast_param(self.bias, normed.dtype, AffineGroupNorm))
 
 
 class AdaptiveGroupNorm(nn.Module):
     """Reference AdaptiveGroupNorm: GroupNorm(32, C) with its own affine,
-    then an extra learned per-channel scale/bias on top."""
+    then an extra learned per-channel scale/bias on top; ``param_casts``
+    counts the casts of that scale and bias."""
+
+    param_casts = 0
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
                  policy: Policy = DEFAULT_POLICY, device=None):
@@ -247,7 +265,8 @@ class AdaptiveGroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         normed = self.group_norm(x)
-        return normed * self.weight.to(normed.dtype) + self.bias.to(normed.dtype)
+        return (normed * cast_param(self.weight, normed.dtype, AdaptiveGroupNorm)
+                + cast_param(self.bias, normed.dtype, AdaptiveGroupNorm))
 
 
 class InstanceNorm(nn.Module):

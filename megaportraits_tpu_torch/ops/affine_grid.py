@@ -3,6 +3,7 @@
 Counterpart of ``megaportraits_tpu/ops/affine_grid.py``: Euler degrees to a
 rotation matrix, a 4x4 affine that is optionally inverted, and the
 ``affine_grid`` lattice with (x, y, z) in the last axis.
+``affine_grid_3d.host_uploads`` counts its base grids made from host data.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from megaportraits_tpu_torch.core.device import upload
 
 
 def rotation_matrix_from_euler_deg(rotation_deg: torch.Tensor) -> torch.Tensor:
@@ -57,10 +60,12 @@ def affine_grid_3d(theta: torch.Tensor, size: Tuple[int, int, int],
     """torch ``F.affine_grid(theta, (B,1,D,H,W))``: theta [B,3,4] ->
     grid [B,D,H,W,3] with (x, y, z) in the last axis."""
     d, h, w = size
-    base = torch.as_tensor(_base_grid_3d(d, h, w, align_corners),
-                           device=theta.device)
+    base = upload(_base_grid_3d(d, h, w, align_corners), theta.device, affine_grid_3d)
     out = torch.einsum("bij,nj->bni", theta.float(), base.reshape(-1, 4))
     return out.reshape(theta.shape[0], d, h, w, 3)
+
+
+affine_grid_3d.host_uploads = 0
 
 
 def compute_rt_warp(rotation_deg: torch.Tensor, translation: torch.Tensor,

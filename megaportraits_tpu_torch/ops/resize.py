@@ -8,6 +8,8 @@ clamp-at-0 source index for ``align_corners=False``).
 
 Public layout: ``linear_resize``/``nearest_resize`` take JAX-style ``axes``
 (the spatial axes of a [B, *spatial, C] tensor, in order).
+``anti_alias_downsample.host_uploads`` counts its blur kernels made from
+host data.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from megaportraits_tpu_torch.core.device import upload
 from megaportraits_tpu_torch.core.dtypes import cudnn_float32
 from megaportraits_tpu_torch.nn.layers import to_channels_first, to_channels_last
 
@@ -129,8 +132,11 @@ def anti_alias_downsample(x: torch.Tensor, scale: float) -> torch.Tensor:
     c = x.shape[-1]
     xf = to_channels_first(x.float())
     xf = F.pad(xf, (ka, kb, ka, kb))
-    k = torch.as_tensor(kernel, device=x.device)[None, None].expand(c, 1, -1, -1)
+    k = upload(kernel, x.device, anti_alias_downsample)[None, None].expand(c, 1, -1, -1)
     out = to_channels_last(_Float32Blur.apply(xf, k.contiguous()))
     h, w = out.shape[1], out.shape[2]
     out = nearest_resize(out, [int(h * scale), int(w * scale)], axes=[1, 2])
     return out.to(x.dtype)
+
+
+anti_alias_downsample.host_uploads = 0

@@ -8,7 +8,9 @@ volume trilinearly with border padding and ``align_corners=True``.
 The sample is ``F.grid_sample`` (5-D) itself, which is the reference op; the
 JAX package has no Pallas kernel here either (``ops/pallas/README.md``).
 The volume is sampled in float32 so that bf16 volumes keep float32
-coordinates; the result has the volume's dtype.
+coordinates; the result has the volume's dtype. ``host_uploads`` on
+``apply_warping_field`` and ``grid_sample_2d`` counts the tensors they make
+from host data (``core/device.upload``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from megaportraits_tpu_torch.core.device import upload
 from megaportraits_tpu_torch.nn.layers import to_channels_first, to_channels_last
 from megaportraits_tpu_torch.ops.resize import linear_resize
 
@@ -72,8 +75,8 @@ def grid_sample_2d(v: torch.Tensor, coords: torch.Tensor,
         raise ValueError(f"unknown padding_mode: {padding_mode}")
     coords = coords.float()
     if padding_mode == "reflection" and align_corners:
-        sizes = torch.tensor([v.shape[2], v.shape[1]], dtype=torch.float32,
-                             device=coords.device)
+        sizes = upload([v.shape[2], v.shape[1]], coords.device, grid_sample_2d,
+                       torch.float32)
         pixel = _reflect_about_pixel_edges((coords + 1.0) * 0.5 * (sizes - 1), sizes)
         coords = pixel * 2.0 / (sizes - 1).clamp(min=1.0) - 1.0
         padding_mode = "border"
@@ -81,6 +84,9 @@ def grid_sample_2d(v: torch.Tensor, coords: torch.Tensor,
                         mode="bilinear", padding_mode=padding_mode,
                         align_corners=align_corners)
     return to_channels_last(out).to(v.dtype)
+
+
+grid_sample_2d.host_uploads = 0
 
 
 def apply_warping_field(v: torch.Tensor, flow: torch.Tensor,
@@ -93,12 +99,15 @@ def apply_warping_field(v: torch.Tensor, flow: torch.Tensor,
     """
     b, d, h, w, c = v.shape
     flow = linear_resize(flow, (d, h, w), axes=(1, 2, 3), align_corners=True)
-    grid = torch.as_tensor(_identity_grid(d, h, w), device=v.device)[None]
+    grid = upload(_identity_grid(d, h, w), v.device, apply_warping_field)[None]
     warped = grid + flow.float()
     if normalize_mode == "reference":
-        norm = torch.tensor([w - 1, h - 1, d - 1], dtype=torch.float32,
-                            device=v.device)
+        norm = upload([w - 1, h - 1, d - 1], v.device, apply_warping_field,
+                      torch.float32)
         warped = 2.0 * warped / norm - 1.0
     elif normalize_mode != "standard":
         raise ValueError(f"unknown normalize_mode: {normalize_mode}")
     return grid_sample_3d(v, warped, align_corners=True)
+
+
+apply_warping_field.host_uploads = 0

@@ -20,6 +20,9 @@ One step does what the JAX step does, in its order:
   * both optimisers step after both gradients exist.
 Both gradients are taken under Gbase's ``Policy.backward_scope``: a float32
 step convolves without TF32 backward as well as forward.
+The step is the span ``train.step``, its phases the spans
+``train.g_forward``, ``train.g_backward`` (remat's recompute falls in it),
+``train.d_step`` and ``train.optimizer`` (``utils/profiling.annotate``).
 The step trains on PyTorch convolutions under autograd: train-mode
 BatchNorm cannot be folded into the kernels' epilogues, so ``G2d.trunk``
 and ``ResBlock2D`` bypass K1 and K2 when ``train`` is set, as the JAX
@@ -74,6 +77,7 @@ from megaportraits_tpu_torch.parallel.mesh import (
 )
 from megaportraits_tpu_torch.train.state import TrainState, make_optimizer
 from megaportraits_tpu_torch.utils.pretrained import maybe_load_pretrained
+from megaportraits_tpu_torch.utils.profiling import annotate
 
 
 class BaseTrainer(NamedTuple):
@@ -219,24 +223,30 @@ def make_train_step(ploss: PerceptualLoss, cfg: Config, unroll: int = 1,
         return total, metrics, xhat
 
     def step(g_state: TrainState, d_state: TrainState, batch: Dict[str, torch.Tensor]):
-        gbase, disc = g_state.model, d_state.model
-        gbase.train()
-        total, metrics, xhat = g_losses(gbase, disc, batch)
-        with gbase.policy.backward_scope():
-            g_grads = torch.autograd.grad(total, g_state.params, allow_unused=True)
+        with annotate("train.step"):
+            gbase, disc = g_state.model, d_state.model
+            gbase.train()
+            with annotate("train.g_forward"):
+                total, metrics, xhat = g_losses(gbase, disc, batch)
+            with annotate("train.g_backward"), gbase.policy.backward_scope():
+                g_grads = torch.autograd.grad(total, g_state.params, allow_unused=True)
 
-        # D on the detached prediction, with its parameters as they were.
-        xhat = xhat.detach()
-        xs, xd = batch["source"], batch["driving"]
-        loss_d = discriminator_loss(disc(xd, xs), disc(xhat, xs), "lsgan")
-        with gbase.policy.backward_scope():
-            d_grads = torch.autograd.grad(loss_d, d_state.params, allow_unused=True)
-        metrics["loss_D"] = loss_d
+            # D on the detached prediction, with its parameters as they were.
+            with annotate("train.d_step"):
+                xhat = xhat.detach()
+                xs, xd = batch["source"], batch["driving"]
+                loss_d = discriminator_loss(disc(xd, xs), disc(xhat, xs), "lsgan")
+                with gbase.policy.backward_scope():
+                    d_grads = torch.autograd.grad(loss_d, d_state.params,
+                                                  allow_unused=True)
+                metrics["loss_D"] = loss_d
 
-        g_state.apply_gradients(g_grads)
-        d_state.apply_gradients(d_grads)
-        metrics = mean_over_ranks({k: v.detach() for k, v in metrics.items()}, mesh)
-        return g_state, d_state, metrics, xhat
+            with annotate("train.optimizer"):
+                g_state.apply_gradients(g_grads)
+                d_state.apply_gradients(d_grads)
+                metrics = mean_over_ranks({k: v.detach() for k, v in metrics.items()},
+                                          mesh)
+            return g_state, d_state, metrics, xhat
 
     if pool_index:
         def pool_step(g_state: TrainState, d_state: TrainState,

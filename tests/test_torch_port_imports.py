@@ -64,7 +64,6 @@ def test_port_imports_nothing_of_jax():
                  "megaportraits_tpu_torch.core.config",
                  "megaportraits_tpu_torch.core.yaml_subset",
                  "megaportraits_tpu_torch.utils.jpeg",
-                 "megaportraits_tpu_torch.utils.profile_drive",
                  "megaportraits_tpu_torch.ops.warp",
                  "megaportraits_tpu_torch.ops.resize",
                  "megaportraits_tpu_torch.models.fan",
