@@ -20,11 +20,18 @@ Phases, in order; any failure exits non-zero:
      behind other work; what K3's conv boundary costs (the chain with its
      tiles left out, and with its waits left out, built by
      utils/probe_conv3x3.py);
+  4b. K4 (bn_act, eval-mode BatchNorm + residual + ReLU in one pass) against
+     its plain version in float32 at the served cells' shapes (G2d's up3
+     at batch 8 with its shortcut, a Genh block at 1024^2 at batch 4, Emtn's
+     stem) and the main path's batch-1 shapes (Emtn's downsampling blocks at
+     128 to 512 channels, up3): one bf16 ulp; kernel, plain and library
+     (PyTorch's BatchNorm chain) times and the bytes' bound;
   5. the main path: FULL Gbase, 512x512, batch 1, bf16 compute, seeded
      random weights with BatchNorm running statistics calibrated once from
      batch statistics; ReenactmentSession.set_source, then 8 drive frames
      with the G2d trunk on K2; launch counts, the trunk operands folded
-     once, output checks, one frame against the plain trunk, the trunk's
+     once, output checks, one frame against the plain trunk, one frame
+     with K4 shut (the BatchNorms' float32 chain) against K4's, the trunk's
      time inside a frame, drive frames/s;
   6. K3's path, its own entry point (no model calls it, in JAX either):
      fused_resblock_chain on the G2d trunk input of each of those frames
@@ -405,6 +412,115 @@ def phase_kernels(torch, dev):
     return k1_rows, chain_rows
 
 
+# K4 at the served cells' shapes: G2d's up3 second half at batch 8 (the
+# shortcut conv's BatchNorm), a Genh block at 1024^2 at batch 4 (the
+# identity), and Emtn's stem at batch 8 (no residual).
+K4_SHAPES = [("G2d up3, shortcut", (8, 512, 512, 64), "shortcut"),
+             ("Genh 1024, identity", (4, 1024, 1024, 64), "identity"),
+             ("Emtn stem", (8, 128, 128, 64), "none"),
+             # The batch-1 drive frame of the main path: Emtn's downsampling
+             # BasicBlocks (the descriptor net at 256, the head-pose net's
+             # last stage at 224), its identity blocks at 512, and up3.
+             ("Emtn layer2 downsample, batch 1", (1, 32, 32, 128), "shortcut"),
+             ("Emtn layer3 downsample, batch 1", (1, 16, 16, 256), "shortcut"),
+             ("Emtn layer4 downsample, batch 1", (1, 8, 8, 512), "shortcut"),
+             ("Emtn head-pose layer4, batch 1", (1, 7, 7, 512), "identity"),
+             ("G2d up3, batch 1", (1, 512, 512, 64), "shortcut")]
+# K4 launches a batch-1 drive frame: Emtn's two ResNet-18s (a stem and 8
+# BasicBlocks each: 2 x 17) and G2d's decoder (3 blocks: 6); the trunk is on K2.
+K4_A_FRAME = 40
+
+
+def bn_act_library(torch, y, bn, r, bn_r):
+    """K4's function as the modules computed it before K4: eval BatchNorm's
+    float32 chain, the residual's sum and ReLU (the speed yardstick,
+    library_ms)."""
+    out = bn(y, False)
+    if r is not None:
+        out = out + (r if bn_r is None else bn_r(r, False))
+    return torch.relu(out)
+
+
+def bf16_ulp_excess(got, args, relu=True):
+    """How far K4's output `got` for ``bn_act(*args, relu=relu)`` lies
+    beyond one bf16 ulp (of the float32 result) from the plain version
+    computed in float32, and beyond a float32 slack of 2**-21 of the terms'
+    magnitude, by which a fused multiply-add and PyTorch's separate products
+    may differ; <= 0 where every element is within."""
+    import torch
+
+    from megaportraits_tpu_torch.ops.kernels.bn_act import bn_act_plain
+
+    f32 = [a.float() for a in args]
+    want = bn_act_plain(*f32, relu=relu)
+    y, m1, s1, b1 = f32[:4]
+    mag = ((y - m1) * s1).abs() + b1.abs()
+    if len(f32) == 5:
+        mag = mag + f32[4].abs()
+    elif len(f32) == 8:
+        r, m2, s2, b2 = f32[4:]
+        mag = mag + ((r - m2) * s2).abs() + b2.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    return ((got.float() - want).abs() - ulp - mag * 2.0 ** -21).max().item()
+
+
+def phase_bn_act(torch, dev):
+    """K4 (bn_act) against its plain version in float32 at K4_SHAPES: one
+    bf16 ulp; kernel, plain and library times and the bytes' bound."""
+    from megaportraits_tpu_torch.nn.blocks import fold_batch_norm
+    from megaportraits_tpu_torch.nn.layers import BatchNorm
+    from megaportraits_tpu_torch.ops.kernels import bn_act as k4
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+
+    def batch_norm(c):
+        bn = BatchNorm(c, device=dev).eval()
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.normal_(0.0, 0.2, generator=gen)
+            bn.running_mean.normal_(0.0, 0.3, generator=gen)
+            bn.running_var.uniform_(0.3, 2.0, generator=gen)
+        return bn
+
+    rows = []
+    with torch.no_grad():
+        for name, shape, form in K4_SHAPES:
+            c = shape[-1]
+            y = torch.randn(shape, device=dev, generator=gen).bfloat16()
+            r = None if form == "none" else torch.randn(
+                shape, device=dev, generator=gen).bfloat16()
+            bn = batch_norm(c)
+            bn_r = batch_norm(c) if form == "shortcut" else None
+            args = [y, *fold_batch_norm(bn)]
+            if r is not None:
+                args.append(r)
+            if bn_r is not None:
+                args += fold_batch_norm(bn_r)
+            got = k4.bn_act(*args)
+            torch.cuda.synchronize()
+            excess = bf16_ulp_excess(got, args)
+            err = (got.float() - k4.bn_act_plain(*[a.float() for a in args])).abs().max().item()
+            check(torch.isfinite(got.float()).all().item(), "K4 output not finite")
+            check(excess <= 0, f"K4 {name}: {excess:.3g} beyond one bf16 ulp of its "
+                  f"plain version in float32")
+            ms = time_ms(lambda: k4.bn_act(*args), queued=True)
+            plain = time_ms(lambda: k4.bn_act_plain(*args), queued=True)
+            lib = time_ms(lambda: bn_act_library(torch, y, bn, r, bn_r), queued=True)
+            moved = nbytes(*args, got)
+            bms = moved / PEAK_BYTES * 1e3
+            rows.append(dict(name=name, shape=shape, form=form, max_abs_err=err,
+                             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                             bound_by="bytes"))
+            print(f"K4 bn_act {name} {'x'.join(map(str, shape))}: max_abs_err "
+                  f"{err:.6g} (within one bf16 ulp) | kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, library (PyTorch's BatchNorm chain) {lib:.4f} ms, "
+                  f"bound {bms:.4f} ms (bytes, {moved / 1e6:.1f} MB) -> "
+                  f"{bms / ms:.1%} of bound, {moved / ms / 1e9:.3f} TB/s")
+            del y, r, got, args
+    return rows
+
+
 def chain_inputs(torch, dev, gen, h, w, c, n):
     """Trunk-like chain inputs: variance-preserving weights, BN-like scales
     and shifts."""
@@ -639,10 +755,39 @@ def trunk_against_float32(torch, model, session, xd):
           "K2 trunk max error exceeds twice the plain bf16 trunk's")
 
 
+def k4_against_its_chain(torch, model, session, xd, k4_out):
+    """One drive frame with K4 shut (every eval BatchNorm epilogue the
+    modules' own float32 chain) against the same frame through K4 (both with
+    the trunk on K2): K4 at every shape of Emtn and the decoder in one
+    comparison, at the frame limits."""
+    from megaportraits_tpu_torch.nn import blocks
+    from megaportraits_tpu_torch.ops.kernels import bn_act as k4
+
+    model.g2d.use_chain_kernel = True
+    takes = blocks.k4_takes
+    blocks.k4_takes = lambda tensors: False
+    try:
+        before = k4.bn_act.launches
+        shut = session(xd)
+        torch.cuda.synchronize()
+        shut_launches = k4.bn_act.launches - before
+    finally:
+        blocks.k4_takes = takes
+    check(shut_launches == 0, f"K4 ran {shut_launches} times with the gate shut")
+    diff = (shut - k4_out).abs()
+    print(f"K4 vs the BatchNorm chain, one frame: max abs {diff.max().item():.6g}, "
+          f"mean abs {diff.mean().item():.6g} (limits {FRAME_MAX_ABS}, "
+          f"{FRAME_MEAN_ABS})")
+    check(diff.max().item() <= FRAME_MAX_ABS, "K4 frame differs from the chain's (max)")
+    check(diff.mean().item() <= FRAME_MEAN_ABS,
+          "K4 frame differs from the chain's (mean)")
+
+
 def phase_main_path(torch, dev):
     from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
     from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
     from megaportraits_tpu_torch.models.gbase import build_gbase, calibrate_batch_norm
+    from megaportraits_tpu_torch.ops.kernels import bn_act as k4
     from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
     from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
 
@@ -665,16 +810,20 @@ def phase_main_path(torch, dev):
     k2.resblock_chain.launches = 0
     session.set_source(xs)
     folds_before = model.g2d.trunk_cache.folds
+    k4_before = k4.bn_act.launches
     outs = [session(frames[0])]
     folds_first = model.g2d.trunk_cache.folds - folds_before
     outs += [session(xd) for xd in frames[1:]]
     torch.cuda.synchronize()
     launches = {"conv3x3_bn_act": k1.conv3x3_bn_act.launches,
                 "resblock_chain": k2.resblock_chain.launches}
+    k4_frames = k4.bn_act.launches - k4_before
     folds_later = model.g2d.trunk_cache.folds - folds_before - folds_first
-    print(f"main path launches over {FRAMES} drive frames: {launches}; trunk "
-          f"operands folded {folds_first} time(s) in the first frame, "
-          f"{folds_later} in the {FRAMES - 1} after it")
+    print(f"main path launches over {FRAMES} drive frames: {launches}, K4 "
+          f"{k4_frames}; trunk operands folded {folds_first} time(s) in the first "
+          f"frame, {folds_later} in the {FRAMES - 1} after it")
+    check(k4_frames == K4_A_FRAME * FRAMES,
+          f"K4 ran {k4_frames} times, want {K4_A_FRAME * FRAMES}")
     check(folds_first == 1, f"the first frame folded {folds_first} times")
     check(folds_later == 0, f"later frames folded {folds_later} times")
     check(launches["resblock_chain"] == FRAMES,
@@ -704,6 +853,7 @@ def phase_main_path(torch, dev):
           f"{FRAME_MEAN_ABS})")
     check(diff.max().item() <= FRAME_MAX_ABS, "chain frame differs (max)")
     check(diff.mean().item() <= FRAME_MEAN_ABS, "chain frame differs (mean)")
+    k4_against_its_chain(torch, model, session, frames[0], outs[0])
 
     # The trunk's time inside a frame: CUDA events around G2d.trunk, the
     # operand cache warm.
@@ -1241,6 +1391,7 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
     from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
     from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
     from megaportraits_tpu_torch.nn.blocks import ResBlock2D
+    from megaportraits_tpu_torch.ops.kernels.bn_act import bn_act
     from megaportraits_tpu_torch.train.state import trainable_parameters
     from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
 
@@ -1289,6 +1440,7 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
 
     step = make_train_step(ploss, cfg)
     reset_counts()
+    k4_before = bn_act.launches
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for i, b in enumerate(batches):
@@ -1313,6 +1465,10 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
           f"{batch * 1e3 / ms:.3f} samples/s; peak memory "
           f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated) | {smi}")
     check(all(n == 0 for n in launches.values()), f"kernels launched in training: {launches}")
+    k4_steps = bn_act.launches - k4_before
+    print(f"train: K4 launched {k4_steps} times over the steps (train-mode BatchNorm "
+          f"bypasses it)")
+    check(k4_steps == 0, f"K4 launched {k4_steps} times in training")
     check(not torch.equal(gbase.get_parameter(g_leaf), g_before), f"G's {g_leaf} did not move")
     check(not torch.equal(disc.get_parameter(d_leaf), d_before), f"D's {d_leaf} did not move")
     for name, p in gbase.named_parameters():
@@ -3253,6 +3409,11 @@ def main():
                 print(f"  {src.name}: {line.strip()}")
 
     k1_rows, chain_rows = phase_kernels(torch, dev)
+    k4_rows = phase_bn_act(torch, dev)
+    torch.cuda.empty_cache()
+    from megaportraits_tpu_torch.ops.kernels.bn_act import bn_act
+
+    k4_start = bn_act.launches
     launches, model, session, frames = phase_main_path(torch, dev)
     k3_launches = phase_k3_path(torch, model, session, frames)
     del model, session, frames
@@ -3331,6 +3492,14 @@ def main():
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    k4_main = k4_rows[0]
+    kernels.append(dict(name="bn_act", route="cuda",
+                        source="megaportraits_tpu_torch/csrc/bn_act.cu",
+                        replaces=None, launches=bn_act.launches - k4_start,
+                        max_abs_err=max(r["max_abs_err"] for r in k4_rows),
+                        ms=k4_main["ms"], plain_ms=k4_main["plain_ms"],
+                        bound_ms=k4_main["bound_ms"], bound_by=k4_main["bound_by"],
+                        library_ms=k4_main["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,10 @@
   * ResNet18 (fc -> 6): Emtn's head-pose net; translation = out[:, 3:].
   * _ResNetTrunk(BasicBlock): Emtn's expression net.
   * ResNet50: the torchvision classifier (no caller in the pipeline).
+
+The stem's and BasicBlock's BatchNorms run as ``nn/blocks.BatchNormEpilogue``
+(kernel K4 in eval mode on bf16 CUDA tensors outside autograd); the
+Bottleneck's (ResNet-50) stay PyTorch's chain.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from torch import nn
 
 from megaportraits_tpu_torch.core.arch import FULL, Arch
 from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, Policy
+from megaportraits_tpu_torch.nn.blocks import BatchNormEpilogue
 from megaportraits_tpu_torch.nn.layers import (
     BatchNorm,
     TorchConv,
@@ -67,14 +72,18 @@ class BasicBlock(nn.Module):
             self.downsample_conv = TorchConv(in_channels, planes, (1, 1),
                                              strides=stride, use_bias=False, **kw)
             self.downsample_bn = BatchNorm(planes, **kw)
+        self.epilogue1 = BatchNormEpilogue()
+        self.epilogue2 = BatchNormEpilogue()
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        out = torch.relu(self.bn1(self.conv1(x), train))
-        out = self.bn2(self.conv2(out), train)
-        identity = x
+        """relu(bn1(conv1)), then relu(bn2(conv2) + the identity or the
+        downsample), each a ``BatchNormEpilogue`` (kernel K4 where it
+        engages)."""
+        out = self.epilogue1(train, self.conv1(x), self.bn1)
         if self.has_downsample:
-            identity = self.downsample_bn(self.downsample_conv(x), train)
-        return torch.relu(out + identity)
+            return self.epilogue2(train, self.conv2(out), self.bn2,
+                                  self.downsample_conv(x), self.downsample_bn)
+        return self.epilogue2(train, self.conv2(out), self.bn2, x)
 
 
 class Bottleneck(nn.Module):
@@ -119,6 +128,7 @@ class _ResNetTrunk(nn.Module):
         self.conv1 = TorchConv(3, a.ch(64), (7, 7), strides=2, padding=3,
                                use_bias=False, **kw)
         self.bn1 = BatchNorm(a.ch(64), **kw)
+        self.stem_epilogue = BatchNormEpilogue()
         planes = [a.ch(64), a.ch(128), a.ch(256), a.ch(512)]
         in_ch = a.ch(64)
         self.block_names = []
@@ -133,8 +143,7 @@ class _ResNetTrunk(nn.Module):
         self.out_channels = in_ch
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x), train))
-        x = max_pool_3x3_s2(x)
+        x = max_pool_3x3_s2(self.stem_epilogue(train, self.conv1(x), self.bn1))
         for name in self.block_names:
             x = getattr(self, name)(x, train)
         return x

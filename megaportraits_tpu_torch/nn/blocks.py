@@ -151,6 +151,69 @@ class OperandCache:
         return self._value
 
 
+def fold_batch_norm(bn: BatchNorm):
+    """(m, s, b), float32 [C], with eval-mode ``bn(y) == (y - m) * s + b``
+    up to float32 reassociation: K4's operands, ``s = weight *
+    rsqrt(running_var + eps)`` folded once."""
+    return (bn.running_mean.float(),
+            bn.weight.detach().float() * torch.rsqrt(bn.running_var.float() + bn.eps),
+            bn.bias.detach().float())
+
+
+def k4_takes(tensors) -> bool:
+    """Whether K4 takes `tensors`' device and dtype: bf16 on a CUDA device.
+    A width it does not take raises in ``bn_act``."""
+    return all(t.device.type == "cuda" and t.dtype == torch.bfloat16 for t in tensors)
+
+
+def k4_engages(train: bool, tensors, bns) -> bool:
+    """Whether an eval-mode BatchNorm epilogue over `tensors` (a conv's
+    output and its residual) runs as kernel K4: not `train`, ``k4_takes``
+    the tensors, and autograd recording nothing (grad off, or no tensor nor
+    BatchNorm weight or bias requires grad)."""
+    if train or not k4_takes(tensors):
+        return False
+    return not torch.is_grad_enabled() or not any(
+        t.requires_grad for t in [*tensors, *(p for bn in bns for p in (bn.weight, bn.bias))])
+
+
+class BatchNormEpilogue:
+    """One conv's eval-mode BatchNorm epilogue: ``relu(bn(y) [+ r])``, with
+    ``r`` the `residual` as it is or ``residual_bn(residual)``.
+
+    Where ``k4_engages`` it is one launch of kernel K4
+    (``ops/kernels/bn_act.py``) on the BatchNorms' folded operands, kept in
+    an ``OperandCache`` and folded again only after a weight, bias or
+    running statistic changed. Otherwise it is the modules' own float32
+    chain, as before: training, float32 policies, the CPU and anything
+    autograd records.
+    """
+
+    def __init__(self):
+        self.cache = OperandCache()
+
+    def __call__(self, train: bool, y: torch.Tensor, bn: BatchNorm,
+                 residual: torch.Tensor = None,
+                 residual_bn: BatchNorm = None) -> torch.Tensor:
+        bns = [bn] if residual_bn is None else [bn, residual_bn]
+        tensors = [y] if residual is None else [y, residual]
+        if not k4_engages(train, tensors, bns):
+            out = bn(y, train)
+            if residual is not None:
+                out = out + (residual if residual_bn is None
+                             else residual_bn(residual, train))
+            return torch.relu(out)
+        from megaportraits_tpu_torch.ops.kernels.bn_act import bn_act
+
+        sources = [t for b in bns
+                   for t in (b.weight, b.bias, b.running_mean, b.running_var)]
+        operands = self.cache.get(
+            sources, lambda: [t for b in bns for t in fold_batch_norm(b)])
+        return bn_act(y.contiguous(), *operands[:3],
+                      None if residual is None else residual.contiguous(),
+                      *operands[3:])
+
+
 class ResBlock2D(nn.Module):
     """Reference ResBlock2D: conv3-norm-ReLU-conv3-norm (+ a 1x1 conv + norm
     shortcut when the width changes) -> ReLU. The JAX block's ``downsample``
@@ -158,9 +221,10 @@ class ResBlock2D(nn.Module):
     is not ported.
 
     ``norm='batch'`` (the reference) uses BatchNorm (``bn1``, ``bn2``,
-    ``shortcut_bn``); ``norm='group'`` uses AffineGroupNorm(32) (``gn1``,
-    ``gn2``, ``shortcut_gn``), which has no batch statistics, so ``train``
-    changes nothing there.
+    ``shortcut_bn``), each half's BatchNorm, residual and ReLU a
+    ``BatchNormEpilogue`` (kernel K4 where it engages); ``norm='group'``
+    uses AffineGroupNorm(32) (``gn1``, ``gn2``, ``shortcut_gn``), which has
+    no batch statistics, so ``train`` changes nothing there.
 
     With ``use_pallas`` (the JAX switch's name) eligible blocks run in eval
     mode as two launches of kernel K1 (``ops/kernels/conv3x3.py``), BN
@@ -194,6 +258,8 @@ class ResBlock2D(nn.Module):
             self.add_module(f"shortcut_{prefix}",
                             norm_cls(f, policy=policy, device=device))
         self.chain_cache = OperandCache()
+        self.epilogue1 = BatchNormEpilogue()
+        self.epilogue2 = BatchNormEpilogue()
 
     def eligible(self, x: torch.Tensor) -> bool:
         """JAX ``ResBlock2D._eligible`` without the VMEM byte bound."""
@@ -232,13 +298,11 @@ class ResBlock2D(nn.Module):
             out = torch.relu(self.gn1(self.conv1(x)))
             return torch.relu(self.gn2(self.conv2(out)) + identity)
 
-        identity = x
-        if self.in_channels != self.out_channels:
-            identity = self.shortcut_bn(self.shortcut_conv(x), train)
-
+        shortcut = self.in_channels != self.out_channels
         if not train and self.eligible(x):
             from megaportraits_tpu_torch.ops.kernels.conv3x3 import conv3x3_bn_act
 
+            identity = self.shortcut_bn(self.shortcut_conv(x), train) if shortcut else x
             cdt = self.policy.compute_dtype
             k1, k2, s1, t1, s2, t2 = self.cached_chain_params()
             outs = []
@@ -248,9 +312,10 @@ class ResBlock2D(nn.Module):
                                            relu=True))
             return torch.stack(outs)
 
-        out = torch.relu(self.bn1(self.conv1(x), train))
-        out = self.bn2(self.conv2(out), train)
-        return torch.relu(out + identity)
+        residual = self.shortcut_conv(x) if shortcut else x
+        out = self.epilogue1(train, self.conv1(x), self.bn1)
+        return self.epilogue2(train, self.conv2(out), self.bn2, residual,
+                              self.shortcut_bn if shortcut else None)
 
 
 class ResBlockBN(nn.Module):

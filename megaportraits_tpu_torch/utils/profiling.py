@@ -104,11 +104,12 @@ def counters() -> Dict[str, int]:
     ``host_uploads`` (tensors made from host data inside a call), each
     with its sites under ``<counter>.<site>``; the kernels' ``launches.*``;
     ``folds`` (the builds of every ``OperandCache``: G2d's trunk operands,
-    the ResBlock2D K1 operands)."""
+    the ResBlock2D K1 operands, the BatchNorm epilogues' K4 operands)."""
     from megaportraits_tpu_torch.models.warpgen import WarpGenerator
     from megaportraits_tpu_torch.nn import layers
     from megaportraits_tpu_torch.nn.blocks import OperandCache
     from megaportraits_tpu_torch.ops import affine_grid, resize, warp
+    from megaportraits_tpu_torch.ops.kernels.bn_act import bn_act
     from megaportraits_tpu_torch.ops.kernels.conv3x3 import conv3x3_bn_act
     from megaportraits_tpu_torch.ops.kernels.resblock_chain import resblock_chain
     from megaportraits_tpu_torch.ops.kernels.resblock_chain_fused import (
@@ -125,7 +126,7 @@ def counters() -> Dict[str, int]:
     for counter, owners in sites.items():
         out[counter] = sum(getattr(o, counter) for o in owners)
         out.update((f"{counter}.{o.__name__}", getattr(o, counter)) for o in owners)
-    for fn in (conv3x3_bn_act, resblock_chain, fused_resblock_chain):
+    for fn in (conv3x3_bn_act, resblock_chain, fused_resblock_chain, bn_act):
         out[f"launches.{fn.__name__}"] = fn.launches
     out["folds"] = OperandCache.all_folds
     return out

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2 and K3 against their plain versions, on the card.
+"""The CUDA kernels K1, K2, K3 and K4 against their plain versions, on the card.
 
 Marker ``cuda``; each test skips on a host without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -12,16 +12,26 @@ differ by bf16 rounding: 2 bf16 ulps of the output's magnitude
 (rtol 2**-7) plus atol 2e-2 for one conv; twice that for a 2-block chain.
 K3 walks its tiles with K2's tile routine, sums in the same order and rounds
 to bf16 at the same places (a residual that stays in shared memory is the
-bf16 tile that was stored), so K3 equals K2 bit for bit.
+bf16 tile that was stored), so K3 equals K2 bit for bit. K4 (bn_act) rounds
+its float32 result to bf16 once: within one bf16 ulp of its plain version
+computed in float32, plus the few float32 ulps of the terms by which a fused
+multiply-add and PyTorch's separate products differ.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from megaportraits_tpu_torch.ops.kernels import bn_act as k4
 from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
 from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
 from megaportraits_tpu_torch.ops.kernels import resblock_chain_fused as k3
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+from chip_smoke import bf16_ulp_excess  # noqa: E402
 
 
 def _conv_inputs(seed, h, w, c, f):
@@ -285,3 +295,55 @@ def test_prefetch_to_the_card_matches_the_cpu_path(cuda):
     assert next(it)["x"].device.type == "cuda"
     with pytest.raises(TypeError):
         next(it)
+
+
+def _bn_act_inputs(seed, shape, form, dev):
+    """y and r in bf16, BatchNorm-like operands in float32."""
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+
+    def ops():
+        return [_t(rng.normal(size=c).astype(np.float32) * 0.3, dev),
+                _t(rng.uniform(0.3, 2.0, c).astype(np.float32), dev),
+                _t(rng.normal(size=c).astype(np.float32) * 0.2, dev)]
+
+    y = _bf16(rng.normal(size=shape).astype(np.float32), dev)
+    args = [y, *ops()]
+    if form != "none":
+        args.append(_bf16(rng.normal(size=shape).astype(np.float32), dev))
+    if form == "shortcut":
+        args += ops()
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 24, 64), (8, 32, 32, 512), (3, 5, 7, 8),
+                                   (2, 9, 11, 24), (1, 4, 4, 2048)])
+@pytest.mark.parametrize("form", ["none", "identity", "shortcut"])
+@pytest.mark.parametrize("relu", [True, False])
+def test_k4_kernel_matches_plain_on_card(cuda, shape, form, relu):
+    args = _bn_act_inputs(30, shape, form, cuda)
+    before = k4.bn_act.launches
+    got = k4.bn_act(*args, relu=relu)
+    torch.cuda.synchronize()
+    assert k4.bn_act.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    assert bf16_ulp_excess(got, args, relu) <= 0
+
+
+@pytest.mark.cuda
+def test_k4_kernel_rejects_what_it_does_not_take(cuda):
+    args = _bn_act_inputs(31, (2, 4, 4, 64), "identity", cuda)
+    with pytest.raises(TypeError):  # float32 activations
+        k4.bn_act(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.bn_act(args[0].transpose(1, 2), *args[1:4], args[4].transpose(1, 2))
+    odd = _bn_act_inputs(32, (2, 4, 4, 12), "none", cuda)
+    with pytest.raises(ValueError, match="C % 8"):
+        k4.bn_act(*odd)
+    y = args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k4.bn_act(y, *args[1:])
+    with torch.no_grad():
+        k4.bn_act(y, *args[1:])
+    torch.cuda.synchronize()
