@@ -75,6 +75,14 @@ Phases, in order; any failure exits non-zero:
      ms/frame and Genh's share of it;
   9. stage-3 serving: FULL Student, 4 avatars, 1024x1024, batch 1; 4 frames
      with two avatar indices; output checks, ms/frame;
+  9b. the Student's session (infer/streaming.StudentSession), FULL, 4
+     avatars, 1024x1024, batch 8 (streams on avatars 0,1,2,3,0,1,2,3),
+     BatchNorms with random statistics: each of the 23 eval BatchNorm
+     epilogues of a step (the stem's and the ResBlockBNs') launches K4,
+     whose output lies within one bf16 ulp of its plain version in float32
+     and of the modules' chain; the frames with K4 shut against K4's, by
+     their mean absolute gap (a few pixels of the Student's bf16 frames are
+     ill-conditioned, so not by the widest); ms/step;
   10. stage-1 training: init_states + make_train_step, FULL, 512x512, batch
      2, bf16 compute, Config() defaults, seeded weights and batches; 1
      warm-up and 3 timed steps with K1 and K2 switched on, which train mode
@@ -1340,6 +1348,97 @@ def phase_student(torch, dev):
     print(f"stage-3 Student: {ms:.3f} ms/frame = {1e3 / ms:.2f} frames/s at "
           f"{HR_SIZE}x{HR_SIZE}, batch 1")
     return dict(ms=ms)
+
+
+STUDENT_STREAMS = 8
+STUDENT_EPILOGUES = 23  # the stem and 11 ResBlockBNs' two
+# The frames with K4 shut against K4's: mean absolute gap 0.00259 on an H100
+# (the widest is 1.0, a few ill-conditioned pixels); about 4 times that.
+STUDENT_SHUT_MEAN_ABS = 0.01
+
+
+def phase_student_session(torch, dev):
+    """The Student's session at 1024, batch 8: every ResBlockBN and stem
+    epilogue through K4, each within one bf16 ulp of its plain version and
+    of the modules' own chain."""
+    from megaportraits_tpu_torch.infer.streaming import StudentSession
+    from megaportraits_tpu_torch.nn import blocks
+    from megaportraits_tpu_torch.nn.layers import BatchNorm
+    from megaportraits_tpu_torch.ops.kernels import bn_act as k4
+
+    session = StudentSession(num_avatars=STUDENT_AVATARS, device=dev, seed=5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    with torch.no_grad():
+        for bn in session.model.modules():
+            if isinstance(bn, BatchNorm):
+                bn.weight.uniform_(0.5, 1.5, generator=gen)
+                bn.bias.normal_(0.0, 0.2, generator=gen)
+                bn.running_mean.normal_(0.0, 0.3, generator=gen)
+                bn.running_var.uniform_(0.3, 2.0, generator=gen)
+    session.set_avatars([i % STUDENT_AVATARS for i in range(STUDENT_STREAMS)])
+    frames = torch.cat([smooth_image(torch, gen, dev, HR_SIZE)
+                        for _ in range(STUDENT_STREAMS)])
+    seen = []
+    epilogue = blocks.BatchNormEpilogue.__call__
+
+    def recording(self, train, y, bn, residual=None, residual_bn=None):
+        out = epilogue(self, train, y, bn, residual, residual_bn)
+        seen.append((y, bn, out))
+        return out
+
+    before = k4.bn_act.launches
+    blocks.BatchNormEpilogue.__call__ = recording
+    try:
+        out = session(frames)
+    finally:
+        blocks.BatchNormEpilogue.__call__ = epilogue
+    torch.cuda.synchronize()
+    launches = k4.bn_act.launches - before
+    check(launches == len(seen) == STUDENT_EPILOGUES,
+          f"K4 ran {launches} times over {len(seen)} epilogues, want {STUDENT_EPILOGUES}")
+    worst_plain = worst_chain = err = 0.0
+    with torch.no_grad():
+        for y, bn, got in seen:
+            args = [y, *blocks.fold_batch_norm(bn)]
+            worst_plain = max(worst_plain, bf16_ulp_excess(got, args))
+            # One bf16 ulp of the chain's value, and the float32 slack of
+            # bf16_ulp_excess (the chain multiplies by rsqrt and the weight
+            # apart, K4 by their folded product).
+            chain = torch.relu(bn(y, False)).float()
+            ulp = torch.exp2(torch.floor(torch.log2(chain.abs().clamp_min(2.0 ** -126))) - 7)
+            m, sc, b = args[1:]
+            mag = ((y.float() - m) * sc).abs() + b.abs()
+            worst_chain = max(worst_chain, ((got.float() - chain).abs() - ulp
+                                            - mag * 2.0 ** -21).max().item())
+            err = max(err, (got.float() - chain.float()).abs().max().item())
+    shapes = sorted({tuple(y.shape) for y, _, _ in seen}, key=lambda t: -t[1])
+    print(f"Student session K4 epilogues: {launches} a step at shapes {shapes}; "
+          f"max abs against the modules' chain {err:.6g}")
+    check(worst_plain <= 0, f"K4 in the Student: {worst_plain:.3g} beyond one bf16 ulp "
+          "of its plain version in float32")
+    check(worst_chain <= 0, f"K4 in the Student: {worst_chain:.3g} beyond one bf16 ulp "
+          "of the modules' chain")
+    takes = blocks.k4_takes
+    blocks.k4_takes = lambda tensors: False
+    try:
+        before = k4.bn_act.launches
+        shut = session(frames)
+        check(k4.bn_act.launches == before, "K4 ran with the gate shut")
+    finally:
+        blocks.k4_takes = takes
+    check(torch.isfinite(out).all().item() and tuple(out.shape) ==
+          (STUDENT_STREAMS, HR_SIZE, HR_SIZE, 3), "Student session output")
+    diff = (shut - out).abs()
+    print(f"Student session, K4 shut against K4: frames max abs {diff.max().item():.6g}, "
+          f"mean {diff.mean().item():.6g}")
+    check(diff.mean().item() <= STUDENT_SHUT_MEAN_ABS,
+          f"Student session frames with K4 shut: mean abs {diff.mean().item():.3g} "
+          f"from K4's > {STUDENT_SHUT_MEAN_ABS}")
+    ms = time_ms(lambda: session(frames), reps=5)
+    print(f"Student session: {ms:.3f} ms/step = {STUDENT_STREAMS * 1e3 / ms:.2f} frames/s "
+          f"at {HR_SIZE}x{HR_SIZE}, batch {STUDENT_STREAMS}")
+    return dict(ms=ms, launches=launches)
 
 
 TRAIN_IMAGES = ("source", "driving", "source_next", "source_star", "driving_star")
@@ -3425,6 +3524,8 @@ def main():
     paths.append(phase_hr(torch, dev)["launches"])
     torch.cuda.empty_cache()
     phase_student(torch, dev)
+    torch.cuda.empty_cache()
+    phase_student_session(torch, dev)
     torch.cuda.empty_cache()
     bare = {}
     for name, phase in (("base", phase_train), ("hr", phase_train_hr),

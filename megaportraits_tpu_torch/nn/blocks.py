@@ -25,6 +25,7 @@ from megaportraits_tpu_torch.nn.layers import (
     TorchConv,
     WSConv,
 )
+from megaportraits_tpu_torch.utils.profiling import annotate
 
 
 class ResBlockCustom(nn.Module):
@@ -321,7 +322,12 @@ class ResBlock2D(nn.Module):
 class ResBlockBN(nn.Module):
     """Reference Student/ResNet18 ResBlock: relu(BN(conv3)) twice, plus a
     shortcut (1x1 conv stride 2 + BN when downsampling, 1x1 conv + BN when
-    the width changes, else the input), then ReLU once more."""
+    the width changes, else the input), then ReLU once more.
+
+    Each ``relu(BN(conv3))`` is a ``BatchNormEpilogue`` (kernel K4 where it
+    engages). The shortcut's BatchNorm and the last ``relu(out + shortcut)``
+    stay the modules' chain: K4's residual form ``relu(bn(y) + r)`` has no
+    ReLU between the BatchNorm and the sum."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  downsample: bool = False, policy: Policy = DEFAULT_POLICY,
@@ -339,13 +345,15 @@ class ResBlockBN(nn.Module):
         self.bn1 = BatchNorm(out_channels, **kw)
         self.conv2 = TorchConv(out_channels, out_channels, (3, 3), padding=1, **kw)
         self.bn2 = BatchNorm(out_channels, **kw)
+        self.epilogue1 = BatchNormEpilogue()
+        self.epilogue2 = BatchNormEpilogue()
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shortcut = x
         if self.shortcut_conv is not None:
             shortcut = self.shortcut_bn(self.shortcut_conv(x), train)
-        out = torch.relu(self.bn1(self.conv1(x), train))
-        out = torch.relu(self.bn2(self.conv2(out), train))
+        out = self.epilogue1(train, self.conv1(x), self.bn1)
+        out = self.epilogue2(train, self.conv2(out), self.bn2)
         return torch.relu(out + shortcut)
 
 
@@ -368,14 +376,15 @@ class SPADE(nn.Module):
         self.conv_beta = TorchConv(128, norm_nc, (3, 3), padding=1, **kw)
 
     def forward(self, x: torch.Tensor, avatar_index: torch.Tensor) -> torch.Tensor:
-        normed = self.norm(x)
-        shared = torch.relu(self.conv_shared(normed))
-        shared = shared + self.avatar_shared_emb(avatar_index)[:, None, None, :]
-        gamma = (self.conv_gamma(shared)
-                 + self.avatar_gamma_emb(avatar_index)[:, None, None, :])
-        beta = (self.conv_beta(shared)
-                + self.avatar_beta_emb(avatar_index)[:, None, None, :])
-        return normed * (1.0 + gamma) + beta
+        with annotate("student.spade"):
+            normed = self.norm(x)
+            shared = torch.relu(self.conv_shared(normed))
+            shared = shared + self.avatar_shared_emb(avatar_index)[:, None, None, :]
+            gamma = (self.conv_gamma(shared)
+                     + self.avatar_gamma_emb(avatar_index)[:, None, None, :])
+            beta = (self.conv_beta(shared)
+                    + self.avatar_beta_emb(avatar_index)[:, None, None, :])
+            return normed * (1.0 + gamma) + beta
 
 
 class SPADEResBlock(nn.Module):
