@@ -68,18 +68,6 @@ BATCH = 2
 SCORE_TOL = 1e-3  # dB
 
 
-@pytest.fixture(autouse=True)
-def one_cpu_thread():
-    """The port's models here run small CPU ops, which on PyTorch's thread
-    pool beside the other test workers' pools spend their time waiting for
-    cores (a test ran 30 to 100 times slower in the parallel run than
-    alone); on one thread they do not."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 # -- HeldoutEvaluator -------------------------------------------------------
 
 

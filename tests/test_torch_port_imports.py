@@ -38,7 +38,7 @@ print(json.dumps({"imported": names, "jax_package": loaded}))
 def test_port_imports_nothing_of_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
-                         text=True, env=env, cwd=ROOT, timeout=300)
+                         text=True, env=env, cwd=ROOT, timeout=60)
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["jax_package"] == []

@@ -59,17 +59,6 @@ CLIPS = ["clipA", "clipB", "clipC"]
 SCORES = {2: 10.0, 4: 12.5, 6: 11.0, 8: 12.0}  # held-out score by step
 
 
-@pytest.fixture(autouse=True)
-def one_cpu_thread():
-    """Small CPU ops on one thread (the tier-1 run's workers share the
-    cores), which the Student's backward needs besides (see the stages
-    tests: its multi-threaded CPU backward corrupts the heap)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def clip_dir(tmp_path_factory):
     """3 mp4 clips of 100 frames (96x96, a skin-toned disc that moves),
@@ -574,7 +563,19 @@ def test_train_smoke_runs_at_tiny(tiny, capsys):
     assert all(np.isfinite(v) for v in result["metrics"].values())
 
 
-def test_overfit_and_validate_student_run_at_tiny(tiny, clip_dir, tmp_path, capsys):
+@pytest.fixture
+def one_cpu_thread():
+    """PyTorch's multi-threaded CPU backward of the TINY Student's strided
+    1x1 shortcut at 64x64 corrupts the heap (test_torch_port_train_stages.py,
+    one_cpu_thread): the real Student trains here on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_overfit_and_validate_student_run_at_tiny(tiny, clip_dir, tmp_path, capsys,
+                                                  one_cpu_thread):
     """overfit with a pool, held-out evaluation and an export; the export
     restores into a fresh TINY Gbase bit for bit; validate_student
     distils behind it with the chain-kernel switch and running statistics."""

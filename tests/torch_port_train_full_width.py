@@ -203,11 +203,11 @@ def jax_train_case(case, state, batch):
 
 
 @contextlib.contextmanager
-def one_case_at_a_time():
-    """Hold ``LOCK`` while the block runs. A case's JAX step takes up to 14
+def one_case_at_a_time(lock=LOCK):
+    """Hold `lock` while the block runs. A case's JAX step takes up to 14
     GB and its port step up to 11 GB on the CPU: two test files running
     their cases at once on two workers would need both."""
-    with open(LOCK, "a") as f:
+    with open(lock, "a") as f:
         fcntl.flock(f, fcntl.LOCK_EX)
         try:
             yield
@@ -247,11 +247,15 @@ def _nested(flat):
 
 def _apart(*args):
     """This file's ``main`` with `args` in a child process, whose memory
-    goes back to the system when it exits; returns what it saved."""
+    goes back to the system when it exits; returns what it saved. The
+    child takes every core, not a test worker's share: it runs alone under
+    ``LOCK`` on the tier-1 run's longest path, and a JAX step's pool takes
+    every core anyway."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(os.cpu_count()))
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "outcomes.npz")
         subprocess.run([sys.executable, os.path.abspath(__file__), *args[:2], out, *args[2:]],
-                       check=True, timeout=1200)
+                       env=env, check=True, timeout=600)
         with np.load(out) as z:
             return {k: z[k] for k in z.files}
 

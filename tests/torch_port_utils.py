@@ -4,6 +4,8 @@ Inputs are drawn with numpy from a seed and handed to both packages; JAX
 variables cross to the port through utils/jax_bridge as numpy trees.
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -13,6 +15,16 @@ from flax.core import unfreeze
 
 from megaportraits_tpu_torch.train.state import trainable_parameters
 from megaportraits_tpu_torch.utils.jax_bridge import load_jax_variables
+
+# One CPU-thread rule for the tier-1 run, set when an xdist worker collects
+# the port's test files: each worker takes its share of the cores for
+# PyTorch's intra-op pool (six pools of every core ran the port's CPU ops 30
+# to 100 times slower than alone), and the child processes it starts take
+# the same share through OMP_NUM_THREADS.
+if "PYTEST_XDIST_WORKER" in os.environ:
+    THREADS = max(1, os.cpu_count() // int(os.environ["PYTEST_XDIST_WORKER_COUNT"]))
+    os.environ["OMP_NUM_THREADS"] = str(THREADS)
+    torch.set_num_threads(THREADS)
 
 
 def numpy_tree(variables):
@@ -177,7 +189,7 @@ def free_port():
         return s.getsockname()[1]
 
 
-def launch_ranks(argv, world_size, cwd, timeout=240, env=None):
+def launch_ranks(argv, world_size, cwd, timeout=120, env=None):
     """Run `argv` (a command line, `python ...` without the interpreter) as
     `world_size` ranks of one gloo group, with the environment ``torchrun``
     gives each rank (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
