@@ -30,9 +30,10 @@ Phases, in order; any failure exits non-zero:
      random weights with BatchNorm running statistics calibrated once from
      batch statistics; ReenactmentSession.set_source, then 8 drive frames
      with the G2d trunk on K2; launch counts, the trunk operands folded
-     once, output checks, one frame against the plain trunk, one frame
-     with K4 shut (the BatchNorms' float32 chain) against K4's, the trunk's
-     time inside a frame, drive frames/s;
+     once, output checks, one frame against the plain trunk (its blocks
+     run in place of K2), one frame with the kernels' gate shut (the
+     BatchNorms' float32 chain) against K4's on the plain trunk, the
+     trunk's time inside a frame, drive frames/s;
   6. K3's path, its own entry point (no model calls it, in JAX either):
      fused_resblock_chain on the G2d trunk input of each of those frames
      with the model's folded trunk parameters; launch counts, and each
@@ -85,8 +86,8 @@ Phases, in order; any failure exits non-zero:
      ill-conditioned, so not by the widest); ms/step;
   10. stage-1 training: init_states + make_train_step, FULL, 512x512, batch
      2, bf16 compute, Config() defaults, seeded weights and batches; 1
-     warm-up and 3 timed steps with K1 and K2 switched on, which train mode
-     must bypass (0 launches of K1, K2, K3); every metric of every step,
+     warm-up and 3 timed steps, which the kernels' gate keeps off every
+     kernel (0 launches of K1, K2, K3, K4); every metric of every step,
      ms/step, steps/s and peak memory beside the card's name and power
      limit; G and D moved, the rotation net and the loss nets bit for bit,
      G2d's BatchNorm statistics moved;
@@ -124,8 +125,8 @@ Phases, in order; any failure exits non-zero:
      card's machine to decode mp4s). Each runs as `python -m
      megaportraits_tpu_torch train-<stage> --config <yaml>` in this process,
      on a YAML file written here as text (read by the port's own reader:
-     the card's machine has no PyYAML) whose model.use_chain_kernel: true
-     puts their Gbase's trunk on K2.
+     the card's machine has no PyYAML); their frozen Gbase's trunk runs on
+     K2 by itself (eval, bf16, no autograd).
      - stage 1: train_base at 512, batch 2, unroll 2, save, log and
        evaluate every 2 steps on 2 tail frames a clip, 4 steps; then again
        to step 6 at unroll 1: it must print the resume line, go on from
@@ -136,8 +137,8 @@ Phases, in order; any failure exits non-zero:
        evaluation every 2, the frozen Gbase from the stage-1 export (bit for
        bit); K2 2 a step plus one a row of every evaluated batch; the
        genh_variables export restores bit for bit;
-     - the serving commands (phase_cli, after stage 1), from YAML files
-       with model.use_chain_kernel: true, on the stage-1 export with its
+     - the serving commands (phase_cli, after stage 1), from YAML files,
+       on the stage-1 export with its
        BatchNorm statistics calibrated: `infer` PNG in and .png out, JPEG
        in and .jpg out (K2 once each; the PNG the in-process
        inference_base bit for bit, the JPEG its bytes), `infer` from a
@@ -181,9 +182,10 @@ Phases, in order; any failure exits non-zero:
      --eval-every 2, --export: loss_G finite and moving, the export at
      the best held-out step and restoring bit for bit, no kernel) and
      validate_student (256, 3 steps, behind that export, with
-     --use-chain-kernel --teacher-bn-mode running: K2 once a sample of
-     each step and each avatar's held-out frame, finite moving losses,
-     the PNGs and RESULTS.txt); each command's seconds and launches;
+     --teacher-bn-mode running: its float32 teacher never on K2, finite
+     moving losses, the PNGs and RESULTS.txt; then that teacher in bf16
+     with its trunk on K2 against the float32 one, beside the plain
+     trunk); each command's seconds and launches;
   18. the pretrained bundle and eval (phase_bundle_eval): synthetic
      original .pth files at their real sizes (2DFAN-4, InceptionResnetV1,
      VGG16 with the LPIPS heads, VGG19, resnet18, 6DRepNet) made from
@@ -734,6 +736,37 @@ def trunk_input(torch, model, session, xd):
         return g2d.conv1x1(g2d.reshape_conv(projected))
 
 
+@contextlib.contextmanager
+def plain_trunk(g2d):
+    """G2d's trunk through its ResBlock2D blocks (cuDNN convolutions, K4
+    where the gate opens) in place of K2, as G2d.trunk runs where K2 does
+    not engage. Yields that trunk."""
+    def blocks(x, train=False):
+        for name in g2d.trunk_names:
+            x = getattr(g2d, name)(x, train)
+        return x
+
+    g2d.trunk = blocks
+    try:
+        yield blocks
+    finally:
+        del g2d.trunk  # back to the class's method
+
+
+@contextlib.contextmanager
+def kernels_shut():
+    """The kernels' gate (nn/blocks.kernel_engages) shut: K2 and K4 run
+    nowhere, the modules' own chains everywhere."""
+    from megaportraits_tpu_torch.nn import blocks
+
+    takes = blocks.kernel_takes
+    blocks.kernel_takes = lambda tensors: False
+    try:
+        yield
+    finally:
+        blocks.kernel_takes = takes
+
+
 def trunk_against_float32(torch, model, session, xd):
     """The G2d trunk of one frame three ways on the same input and bf16
     weights: K2, the plain bf16 blocks (cuDNN), and float32 activations
@@ -743,14 +776,11 @@ def trunk_against_float32(torch, model, session, xd):
 
     g2d = model.g2d
     x = trunk_input(torch, model, session, xd)
-    with torch.no_grad():
+    with torch.no_grad(), plain_trunk(g2d) as blocks:
         weights, scales, shifts = g2d.trunk_chain_params()
         ref = k2.resblock_chain_plain(x[0].float(), weights.float(), scales, shifts)
         kern = k2.resblock_chain(x[0].contiguous(), weights, scales, shifts)
-        plain = x
-        for name in g2d.trunk_names:
-            plain = getattr(g2d, name)(plain)
-        plain = plain[0]
+        plain = blocks(x)[0]
     scale = ref.abs().max().item()
     e_k = (kern.float() - ref).abs()
     e_p = (plain.float() - ref).abs()
@@ -764,24 +794,19 @@ def trunk_against_float32(torch, model, session, xd):
 
 
 def k4_against_its_chain(torch, model, session, xd, k4_out):
-    """One drive frame with K4 shut (every eval BatchNorm epilogue the
-    modules' own float32 chain) against the same frame through K4 (both with
-    the trunk on K2): K4 at every shape of Emtn and the decoder in one
-    comparison, at the frame limits."""
-    from megaportraits_tpu_torch.nn import blocks
+    """One drive frame with the kernels' gate shut (every eval BatchNorm
+    epilogue the modules' own float32 chain) against the same frame through
+    K4 (both with the plain trunk, `k4_out`): K4 at every shape of Emtn, the
+    trunk and the decoder in one comparison, at the frame limits."""
     from megaportraits_tpu_torch.ops.kernels import bn_act as k4
+    from megaportraits_tpu_torch.ops.kernels import resblock_chain as k2
 
-    model.g2d.use_chain_kernel = True
-    takes = blocks.k4_takes
-    blocks.k4_takes = lambda tensors: False
-    try:
-        before = k4.bn_act.launches
+    with kernels_shut():
+        before = k4.bn_act.launches + k2.resblock_chain.launches
         shut = session(xd)
         torch.cuda.synchronize()
-        shut_launches = k4.bn_act.launches - before
-    finally:
-        blocks.k4_takes = takes
-    check(shut_launches == 0, f"K4 ran {shut_launches} times with the gate shut")
+        shut_launches = k4.bn_act.launches + k2.resblock_chain.launches - before
+    check(shut_launches == 0, f"K2 and K4 ran {shut_launches} times with the gate shut")
     diff = (shut - k4_out).abs()
     print(f"K4 vs the BatchNorm chain, one frame: max abs {diff.max().item():.6g}, "
           f"mean abs {diff.mean().item():.6g} (limits {FRAME_MAX_ABS}, "
@@ -813,7 +838,6 @@ def phase_main_path(torch, dev):
           f"{n_bn} BatchNorms calibrated, set-up {time.perf_counter() - t0:.1f} s")
 
     session = ReenactmentSession(model=model, bn_mode="running")
-    model.g2d.use_chain_kernel = True
     k1.conv3x3_bn_act.launches = 0
     k2.resblock_chain.launches = 0
     session.set_source(xs)
@@ -853,40 +877,40 @@ def phase_main_path(torch, dev):
     check(stack.std().item() > 1e-3, "outputs are flat")
 
     trunk_against_float32(torch, model, session, frames[0])
-    model.g2d.use_chain_kernel = False
-    plain_out = session(frames[0])
+    with plain_trunk(model.g2d):
+        plain_out = session(frames[0])
     diff = (plain_out - outs[0]).abs()
     print(f"chain vs plain trunk, one frame: max abs {diff.max().item():.6g}, "
           f"mean abs {diff.mean().item():.6g} (limits {FRAME_MAX_ABS}, "
           f"{FRAME_MEAN_ABS})")
     check(diff.max().item() <= FRAME_MAX_ABS, "chain frame differs (max)")
     check(diff.mean().item() <= FRAME_MEAN_ABS, "chain frame differs (mean)")
-    k4_against_its_chain(torch, model, session, frames[0], outs[0])
+    k4_against_its_chain(torch, model, session, frames[0], plain_out)
 
     # The trunk's time inside a frame: CUDA events around G2d.trunk, the
     # operand cache warm.
     trunk_events = []
-    g2d_trunk = model.g2d.trunk
 
-    def timed_trunk(x, train=False):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = g2d_trunk(x, train)
-        end.record()
-        trunk_events.append((start, end))
-        return out
+    def timed(trunk):
+        def run(x, train=False):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = trunk(x, train)
+            end.record()
+            trunk_events.append((start, end))
+            return out
+        return run
 
     timings, trunk_ms = {}, {}
-    model.g2d.trunk = timed_trunk
+    k2_trunk = model.g2d.trunk
     for chain in (True, False):
-        model.g2d.use_chain_kernel = chain
-        trunk_events.clear()
-        timings[chain] = time_ms(lambda: session(frames[1]), reps=1)
-        trunk_ms[chain] = statistics.median(
-            a.elapsed_time(b) for a, b in trunk_events[2:])
-    del model.g2d.trunk  # back to the class's method
-    model.g2d.use_chain_kernel = True
+        with plain_trunk(model.g2d) as blocks:
+            model.g2d.trunk = timed(k2_trunk if chain else blocks)
+            trunk_events.clear()
+            timings[chain] = time_ms(lambda: session(frames[1]), reps=1)
+            trunk_ms[chain] = statistics.median(
+                a.elapsed_time(b) for a, b in trunk_events[2:])
     print(f"G2d trunk inside a drive frame: {trunk_ms[True]:.3f} ms on K2 "
           f"(operands cached), {trunk_ms[False]:.3f} ms on the plain (cuDNN) "
           f"blocks")
@@ -1038,17 +1062,19 @@ def phase_full_width(torch, dev):
             g2d = model.g2d
         elif case.name == "ghr":
             g2d = model.gbase.g2d
-        out, secs = run(case, model, images)
-        plain = golden_gap(np, seeded, golden, case.name, out["out"])
         frame_limit = f"max {FRAME_MAX_ABS}, mean {FRAME_MEAN_ABS}"
         if g2d is None:
             # No kernel runs in the Student: its bf16 gap is bf16's own
             # rounding through the model's gain, printed without a limit.
+            out, secs = run(case, model, images)
+            plain = golden_gap(np, seeded, golden, case.name, out["out"])
             report(case.name, "bf16", plain, "none: no kernel", secs, True)
         else:
+            with plain_trunk(g2d):
+                out, secs = run(case, model, images)
+            plain = golden_gap(np, seeded, golden, case.name, out["out"])
             report(case.name, "bf16, plain trunk", plain, frame_limit, secs,
                    plain[0] <= FRAME_MAX_ABS and plain[1] <= FRAME_MEAN_ABS)
-            g2d.use_chain_kernel = True
             reset_counts()
             out, secs = run(case, model, images)
             launches.append(counts())
@@ -1205,12 +1231,16 @@ def phase_train_full_width(torch, dev):
         torch.cuda.empty_cache()
 
         nets = seeded.build_train_case(case, DEFAULT_POLICY, dev, state)
-        out, secs = steps(case, nets, batch)
+        frozen = None  # the Gbase whose trunk K2 can carry; stage 1 trains its own
+        if case.name == "train_hr":
+            frozen = nets["gbase"]
+        elif case.name == "train_student":
+            frozen = nets["teacher"].gbase
+        with plain_trunk(frozen.g2d) if frozen else contextlib.nullcontext():
+            out, secs = steps(case, nets, batch)
         plain = compare(case, "bf16" if case.name == "train_base"
                         else "bf16, plain trunk", out, secs, False)
-        if case.name != "train_base":
-            frozen = nets["gbase"] if case.name == "train_hr" else nets["teacher"].gbase
-            frozen.g2d.use_chain_kernel = True
+        if frozen:
             reset_counts()
             out, secs = steps(case, nets, batch)
             launches.append(counts())
@@ -1256,7 +1286,6 @@ def phase_hr(torch, dev):
     frames = [smooth_image(torch, gen, dev, size) for _ in range(HR_FRAMES)]
     n_bn = calibrate_batch_norm(model.gbase, xs, frames[0])
     session = ReenactmentSession(model=model.gbase, bn_mode="running")
-    model.gbase.g2d.use_chain_kernel = True
     session.set_source(xs)
 
     def upsample(xhat):
@@ -1419,14 +1448,10 @@ def phase_student_session(torch, dev):
           "of its plain version in float32")
     check(worst_chain <= 0, f"K4 in the Student: {worst_chain:.3g} beyond one bf16 ulp "
           "of the modules' chain")
-    takes = blocks.k4_takes
-    blocks.k4_takes = lambda tensors: False
-    try:
+    with kernels_shut():
         before = k4.bn_act.launches
         shut = session(frames)
         check(k4.bn_act.launches == before, "K4 ran with the gate shut")
-    finally:
-        blocks.k4_takes = takes
     check(torch.isfinite(out).all().item() and tuple(out.shape) ==
           (STUDENT_STREAMS, HR_SIZE, HR_SIZE, 3), "Student session output")
     diff = (shut - out).abs()
@@ -1479,8 +1504,8 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
 
     init_states + make_train_step at `arch`, `size`, `batch`, Config()
     defaults, seeded weights and batches; 1 warm-up and TRAIN_STEPS timed
-    steps with K2 (use_chain_kernel) and K1 (use_pallas) switched on, which
-    train mode must bypass: K1, K2 and K3 launch 0 times in the steps. G
+    steps, which the kernels' gate keeps off every kernel (train mode): K1,
+    K2, K3 and K4 launch 0 times in the steps. G
     and D move, the rotation net and the loss nets stay bit for bit, G2d's
     BatchNorm statistics move. Then ReenactmentSession(bn_mode='running')
     on the trained Gbase: set_source + SERVE_FRAMES frames, the trunk's
@@ -1489,7 +1514,6 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
     from megaportraits_tpu_torch.core.config import Config
     from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY
     from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
-    from megaportraits_tpu_torch.nn.blocks import ResBlock2D
     from megaportraits_tpu_torch.ops.kernels.bn_act import bn_act
     from megaportraits_tpu_torch.train.state import trainable_parameters
     from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
@@ -1517,7 +1541,6 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
           f"schedule; set-up {time.perf_counter() - t0:.1f} s")
 
     # One frame before training, so that the trunk's operands are cached.
-    gbase.g2d.use_chain_kernel = True
     session = ReenactmentSession(model=gbase, bn_mode="running")
     session.set_source(xs)
     session(frames[0])
@@ -1531,9 +1554,6 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
                      if "rotation_net" in name}
     ploss_before = [p.detach().clone() for p in ploss.parameters()]
     stats_before = {name: b.clone() for name, b in gbase.g2d.named_buffers()}
-    blocks = [m for m in gbase.modules() if isinstance(m, ResBlock2D)]
-    for m in blocks:
-        m.use_pallas = True
     check(len(trainable_parameters(gbase)) < len(list(gbase.parameters())),
           "the rotation net is not frozen")
 
@@ -1554,8 +1574,6 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
         check(tuple(xhat.shape) == (batch, size, size, 3), f"xhat shape {xhat.shape}")
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
-    for m in blocks:
-        m.use_pallas = False
     ms = statistics.median(step_ms[1:])
     print(f"train launches over {len(batches)} steps: {launches} (K1, K2 and K3 must "
           f"stay 0: train-mode BatchNorm cannot fold into them)")
@@ -1584,7 +1602,6 @@ def phase_train(torch, dev, smi, arch="full", size=TRAIN_SIZE, batch=TRAIN_BATCH
 
     # Serve from the trained weights, the trunk on K2.
     del batches, xhat, metrics
-    gbase.g2d.use_chain_kernel = True
     session = ReenactmentSession(model=gbase, bn_mode="running")
     reset_counts()
     session.set_source(xs)
@@ -1759,7 +1776,6 @@ def phase_train_hr(torch, dev, smi, arch="full", size=HR_TRAIN["size"],
     calibrate_batch_norm(gbase, smooth_image(torch, gen, dev, size),
                          smooth_image(torch, gen, dev, size))
     gbase.requires_grad_(False)
-    gbase.g2d.use_chain_kernel = True
     genh, ploss, state = init_hr_state(cfg, seed=1, policy=policy, image_size=size,
                                        device=dev)
 
@@ -1861,7 +1877,6 @@ def phase_train_student(torch, dev, smi, arch="full", size=STUDENT_TRAIN["size"]
     n_bn += calibrate_batch_norm_with(
         teacher.genh, lambda: teacher.genh(teacher.gbase.generate(xs, xd), train=True))
     teacher.requires_grad_(False)
-    teacher.gbase.g2d.use_chain_kernel = True
     student, state = init_student_state(cfg, seed=3, policy=policy, image_size=size,
                                         device=dev)
     index = torch.arange(batch, device=dev) % avatars
@@ -1937,9 +1952,9 @@ DRIVER_FRAMES = 6
 DRIVER_STEPS = 4
 DRIVER_RESUMED_STEPS = 6
 DRIVER_HOLDOUT = 2
-# The model and training keys of every YAML file this script writes: the
-# G2d trunk on K2 (a CPU rehearsal adds arch tiny and use_bf16 false).
-DRIVER_MODEL = {"use_chain_kernel": True}
+# The model and training keys of every YAML file this script writes (a CPU
+# rehearsal adds arch tiny and use_bf16 false).
+DRIVER_MODEL = {}
 DRIVER_TRAINING = {}
 
 
@@ -1991,9 +2006,9 @@ def write_yaml(path, sections):
 
 
 def driver_yaml(work, name, batch=TRAIN_BATCH, size=None, **training):
-    """work/<name>.yaml: FULL at `size` (TRAIN_SIZE by default) with the
-    trunk on K2 (model.use_chain_kernel), the drivers' own defaults
-    otherwise; clips from work/clips, checkpoints in work/<name>."""
+    """work/<name>.yaml: FULL at `size` (TRAIN_SIZE by default), the
+    drivers' own defaults otherwise; clips from work/clips, checkpoints in
+    work/<name>."""
     size = size or TRAIN_SIZE
     return write_yaml(work / f"{name}.yaml", {
         "data": {"train_width": size, "train_height": size},
@@ -2306,7 +2321,7 @@ def phase_driver_student(torch, dev, smi, work, bare_ms):
     """Stage-3 driver: train_student, FULL, 512, batch 4, 4 avatars,
     DRIVER_STEPS steps; the teacher restored from a {"ghr_variables"}
     checkpoint written here from the stage-1 and stage-2 exports, its
-    trunk on K2 by the YAML's model.use_chain_kernel. K2 4 times a step;
+    trunk on K2 (eval, bf16, no autograd). K2 4 times a step;
     the teacher bit for bit as saved, before and after the steps."""
     from megaportraits_tpu_torch.core.checkpoint import CheckpointManager
     from megaportraits_tpu_torch.infer.inference import restore_gbase
@@ -2622,7 +2637,7 @@ def phase_cli(torch, dev, smi, work, size=None, frames=CLI_FRAMES):
     """The serving commands as a user runs them, `python -m
     megaportraits_tpu_torch <command> --config <yaml>`, at `size`
     (TRAIN_SIZE by default), from YAML
-    files written as text with model.use_chain_kernel true. They serve the
+    files written as text. They serve the
     stage-1 driver's export (work/base/export) with its BatchNorm running
     statistics calibrated on the source/driving pair and saved as a
     checkpoint of its own (after a few steps the running statistics are
@@ -2971,13 +2986,15 @@ def run_tool(torch, dev, smi, name, fn):
 def teacher_against_float32(torch, dev, export, frames):
     """validate_student's teacher as the tool builds it (float32 GHR, the
     overfit export grafted into Gbase, Gbase-only, running statistics) on
-    each avatar's first frame driven by its held-out last one: K2 against
-    its plain version on the teacher's own trunk input (the bf16 operands
-    G2d hands it); the teacher's output with its trunk on K2 against the
-    same teacher all in float32, beside an all-bf16 teacher (the port's
-    DEFAULT_POLICY) against float32. The teacher with K2 must be no further
-    from float32 than twice the bf16 teacher is. Returns K2's max abs
-    error. Launches here are comparisons and are not counted."""
+    each avatar's first frame driven by its held-out last one: it must run
+    no K2 (a float32 policy computes in float32). The same teacher in bf16
+    (the port's DEFAULT_POLICY) runs its trunk on K2: K2 against its plain
+    version on that teacher's own trunk input, and the bf16 teacher's
+    output with its trunk on K2 against the float32 teacher, beside the
+    bf16 teacher with the plain trunk. The teacher with K2 must be no
+    further from float32 than twice the plain-trunk teacher is. Returns
+    K2's max abs error. Launches here are comparisons and are not
+    counted."""
     from megaportraits_tpu_torch.core.config import Config
     from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
     from megaportraits_tpu_torch.models.genh import build_ghr
@@ -2986,33 +3003,32 @@ def teacher_against_float32(torch, dev, export, frames):
     from megaportraits_tpu_torch.train.train_student import make_teacher_forward
 
     def teacher(policy):
-        model = build_ghr(Config().make_arch(), policy=policy, device=dev, seed=0,
-                          use_chain_kernel=True)
+        model = build_ghr(Config().make_arch(), policy=policy, device=dev, seed=0)
         validate_student._graft(model.gbase, str(export), "g_variables", "--gbase-ckpt",
                                 "Gbase")
         return model, make_teacher_forward(model, include_enh=False, bn_mode="running")
 
     f32, f32_fwd = teacher(FP32_POLICY)
     b16, b16_fwd = teacher(DEFAULT_POLICY)
-    b16.gbase.g2d.use_chain_kernel = False
-    g2d = f32.gbase.g2d
+    g2d = b16.gbase.g2d
     trunk_in = []
     hook = g2d.conv1x1.register_forward_hook(lambda m, i, out: trunk_in.append(out))
-    k2_err, gaps = 0.0, {"K2 trunk": [], "bf16 teacher": []}
+    k2_err, gaps = 0.0, {"K2 trunk": [], "plain trunk": []}
     for fs in frames:
         xs = torch.from_numpy(fs[0][None]).to(dev)
         xd = torch.from_numpy(fs[-1][None]).to(dev)
-        g2d.use_chain_kernel = True
-        with_k2 = f32_fwd(xs, xd)
-        g2d.use_chain_kernel = False
+        before = k2.resblock_chain.launches
         ref = f32_fwd(xs, xd)
-        bf16 = b16_fwd(xs, xd)
-        for name, out in (("K2 trunk", with_k2), ("bf16 teacher", bf16)):
+        check(k2.resblock_chain.launches == before, "K2 ran in the float32 teacher")
+        with_k2 = b16_fwd(xs, xd)
+        with plain_trunk(g2d):
+            plain = b16_fwd(xs, xd)
+        for name, out in (("K2 trunk", with_k2), ("plain trunk", plain)):
             check(torch.isfinite(out).all().item(), f"{name} teacher output not finite")
             gaps[name].append((out - ref).abs())
         with torch.no_grad():
-            x = trunk_in[-1][0].to(torch.bfloat16).contiguous()
-            weights, scales, shifts = g2d.cached_trunk_chain_params(torch.bfloat16)
+            x = trunk_in[-1][0].contiguous()
+            weights, scales, shifts = g2d.cached_trunk_chain_params()
             got = k2.resblock_chain(x, weights, scales, shifts)
             want = k2.resblock_chain_plain(x, weights, scales, shifts)
         err, rel = errors(got, want)
@@ -3025,14 +3041,14 @@ def teacher_against_float32(torch, dev, export, frames):
     hook.remove()
     stats = {name: (torch.stack(g).max().item(), torch.stack(g).mean().item())
              for name, g in gaps.items()}
-    print(f"scripts validate_student's teacher against itself in float32, output in "
-          f"[0, 1] over {len(frames)} held-out frames: trunk on K2 in bf16 max abs "
-          f"{stats['K2 trunk'][0]:.6g} mean {stats['K2 trunk'][1]:.6g}; all-bf16 teacher "
-          f"max abs {stats['bf16 teacher'][0]:.6g} mean {stats['bf16 teacher'][1]:.6g}")
+    print(f"scripts validate_student's teacher in bf16 against itself in float32, output "
+          f"in [0, 1] over {len(frames)} held-out frames: trunk on K2 max abs "
+          f"{stats['K2 trunk'][0]:.6g} mean {stats['K2 trunk'][1]:.6g}; plain trunk "
+          f"max abs {stats['plain trunk'][0]:.6g} mean {stats['plain trunk'][1]:.6g}")
     for i, what in ((0, "max"), (1, "mean")):
-        check(stats["K2 trunk"][i] <= 2 * stats["bf16 teacher"][i] + 1e-6,
+        check(stats["K2 trunk"][i] <= 2 * stats["plain trunk"][i] + 1e-6,
               f"the teacher with its trunk on K2 is further from float32 ({what}) than "
-              f"twice the bf16 teacher")
+              f"twice the teacher with the plain trunk")
     return k2_err
 
 
@@ -3050,11 +3066,10 @@ def phase_scripts(torch, dev, smi, work, size=SCRIPT_SIZE, smoke_size=TRAIN_SIZE
         the best held-out step, restored into a fresh Gbase bit for bit;
         no kernel (train mode, batch-statistics evaluation);
       * validate_student at `size` behind that export with
-        --use-chain-kernel --teacher-bn-mode running: the teacher's trunk
-        on K2 once a sample (a step's batch and each avatar's held-out
-        frame), finite distillation losses that move, the side-by-side
-        PNGs and RESULTS.txt; then that teacher against float32
-        (``teacher_against_float32``).
+        --teacher-bn-mode running: the float32 teacher's trunk never on K2,
+        finite distillation losses that move, the side-by-side PNGs and
+        RESULTS.txt; then that teacher against itself in bf16 with its
+        trunk on K2 (``teacher_against_float32``).
     The clips' ids name empty .mp4 files in the clip directory
     (validate_student lists clips by their .mp4; the cache is read first,
     so no video is decoded). Returns the launches of all four and K2's max
@@ -3134,7 +3149,7 @@ def phase_scripts(torch, dev, smi, work, size=SCRIPT_SIZE, smoke_size=TRAIN_SIZE
             lambda: validate_student.main([
                 "--size", str(size), "--steps", str(SCRIPT_STUDENT_STEPS), "--batch", "2",
                 "--num-avatars", str(avatars), "--video-dir", str(clips), "--gbase-ckpt",
-                str(export), "--use-chain-kernel", "--teacher-bn-mode", "running",
+                str(export), "--teacher-bn-mode", "running",
                 "--out", str(out)] + device))
         measured.append(launches)
         check(rc == 0, f"validate_student returned {rc}")
@@ -3153,8 +3168,8 @@ def phase_scripts(torch, dev, smi, work, size=SCRIPT_SIZE, smoke_size=TRAIN_SIZE
               f"{avatars} held-out frames with LPIPS included); {written}")
         k2_err = None
         if dev.type == "cuda":
-            check_trunk_launches("validate_student's teacher", launches,
-                                 SCRIPT_STUDENT_STEPS * 2 + avatars, TRUNK_BLOCKS)
+            # The teacher is float32: its trunk stays off K2.
+            check_trunk_launches("validate_student's teacher", launches, 0, TRUNK_BLOCKS)
             frames = validate_student._load_frames(validate_student.parse_args(
                 ["--size", str(size), "--num-avatars", str(avatars), "--video-dir",
                  str(clips)]))
@@ -3269,7 +3284,6 @@ def phase_bundle_eval(torch, dev, smi, work, arch="full", size=TRAIN_SIZE,
     xs = smooth_image(torch, gen, dev, size)
     drives = [smooth_image(torch, gen, dev, size) for _ in range(frames)]
     calibrate_batch_norm(model, xs, drives[0])
-    model.g2d.use_chain_kernel = True
     session = ReenactmentSession(model=model, bn_mode="running")
     reset_counts()
     session.set_source(xs)

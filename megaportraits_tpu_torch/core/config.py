@@ -3,11 +3,7 @@
 
 The same keys and defaults as the JAX package, so one YAML file configures
 either package. ``load_config`` reads YAML with ``core/yaml_subset.py``:
-the port needs no YAML package. One field is the port's own:
-``model.use_chain_kernel`` puts the G2d trunk on kernel K2, the switch the
-JAX model has on ``G2d`` (``megaportraits_tpu/models/g2d.py``) with its
-default, off; JAX's ``load_config`` drops the key, so one YAML file still
-configures both packages.
+the port needs no YAML package.
 """
 
 from __future__ import annotations
@@ -99,10 +95,6 @@ class ModelConfig:
     use_bf16: bool = True
     # Norm of the ResBlock2D family: 'batch' (reference) or 'group'.
     norm: str = "batch"
-    # Run the G2d trunk on kernel K2 (ops/kernels/resblock_chain.py) where
-    # JAX's rule allows it: not training, norm 'batch', a map whose sides
-    # are multiples of 8 (models/g2d.py). Elsewhere the plain blocks run.
-    use_chain_kernel: bool = False
 
     def parity(self) -> "ModelConfig":
         return dataclasses.replace(
@@ -135,23 +127,20 @@ class Config:
                    seed: int = 0, remat: str = "none"):
         """Gbase from the model section with seeded random weights on
         `device` (the card by default; raises if there is none and the
-        caller did not ask for the CPU), the `remat` mode ('none',
-        'selective', 'full': ``models/gbase.py``) and its trunk on K2 when
-        ``model.use_chain_kernel`` is set."""
+        caller did not ask for the CPU) and the `remat` mode ('none',
+        'selective', 'full': ``models/gbase.py``)."""
         from megaportraits_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
         from megaportraits_tpu_torch.models.gbase import build_gbase
 
         if policy is None:
             policy = DEFAULT_POLICY if self.model.use_bf16 else FP32_POLICY
-        gbase = build_gbase(
+        return build_gbase(
             self.make_arch(), policy=policy, device=device, seed=seed,
             warp_normalize_mode=self.model.warp_normalize_mode,
             rotation_input_size=self.model.rotation_input_size,
             descriptor_input_size=self.model.descriptor_input_size,
             remat=remat,
         )
-        gbase.g2d.use_chain_kernel = self.model.use_chain_kernel
-        return gbase
 
     def make_arch(self):
         """Arch preset with the config's norm decision applied."""

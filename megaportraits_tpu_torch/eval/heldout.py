@@ -110,8 +110,8 @@ class HeldoutEvaluator:
                  upscale: int = 2) -> "HeldoutEvaluator":
         """Stage-2 super-resolution self-reenactment, composed as the HR
         step is (``train/train_hr.py``): the frozen Gbase in eval mode at
-        base resolution (its trunk on K2 when ``use_chain_kernel`` is set,
-        once a row), bilinear x`upscale` with ``align_corners=False``, Genh
+        base resolution (its trunk on K2 in bf16 on the card, once a row),
+        bilinear x`upscale` with ``align_corners=False``, Genh
         with batch statistics; scored against the native-resolution tail
         frame. The inputs are the box-mean downsamples of the tail pairs."""
         del genh  # the scored model is the state's

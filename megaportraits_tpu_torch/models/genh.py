@@ -93,12 +93,10 @@ def build_genh(arch: Union[str, Arch] = "full", policy: Policy = DEFAULT_POLICY,
 
 def build_ghr(arch: Union[str, Arch] = "full", policy: Policy = DEFAULT_POLICY,
               device: Union[str, torch.device] = DEFAULT_DEVICE, seed: int = 0,
-              use_chain_kernel: bool = False, **kwargs) -> GHR:
+              **kwargs) -> GHR:
     """GHR with seeded random weights on `device` (the card by default). Its
     Gbase draws first, so it gets the weights of ``build_gbase`` with the
-    same seed; `use_chain_kernel` puts its G2d trunk on K2 (``Config``'s
-    ``model.use_chain_kernel``)."""
+    same seed."""
     model = GHR(policy=policy, arch=get_arch(arch), device=resolve_device(device),
                 **kwargs)
-    model.gbase.g2d.use_chain_kernel = use_chain_kernel
     return init_parameters(model, seed)

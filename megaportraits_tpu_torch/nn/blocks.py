@@ -24,6 +24,7 @@ from megaportraits_tpu_torch.nn.layers import (
     InstanceNorm,
     TorchConv,
     WSConv,
+    fold_batch_norm,
 )
 from megaportraits_tpu_torch.utils.profiling import annotate
 
@@ -124,10 +125,9 @@ class OperandCache:
     """Kernel operands computed from a module's tensors, kept until one of
     those tensors changes.
 
-    ``get(sources, build, extra)`` returns ``build()``'s last result while
-    every tensor of ``sources`` still has the ``data_ptr``, ``_version``,
-    device and dtype it had then (and `extra` is unchanged), else builds
-    anew, without autograd. ``load_state_dict``, a BatchNorm calibration and
+    ``get(sources, build)`` returns ``build()``'s last result while every
+    tensor of ``sources`` still has the ``data_ptr``, ``_version``, device
+    and dtype it had then, else builds anew, without autograd. ``load_state_dict``, a BatchNorm calibration and
     an optimiser step write in place and move ``_version``; ``.to()`` and an
     assignment to ``.data`` move ``data_ptr``. ``folds`` counts the builds,
     ``OperandCache.all_folds`` those of every cache.
@@ -140,9 +140,8 @@ class OperandCache:
         self._key = None
         self._value = None
 
-    def get(self, sources, build, extra=()):
-        key = (extra, tuple((t.data_ptr(), t._version, t.device, t.dtype)
-                            for t in sources))
+    def get(self, sources, build):
+        key = tuple((t.data_ptr(), t._version, t.device, t.dtype) for t in sources)
         if key != self._key:
             with torch.no_grad():
                 self._value = build()
@@ -152,37 +151,30 @@ class OperandCache:
         return self._value
 
 
-def fold_batch_norm(bn: BatchNorm):
-    """(m, s, b), float32 [C], with eval-mode ``bn(y) == (y - m) * s + b``
-    up to float32 reassociation: K4's operands, ``s = weight *
-    rsqrt(running_var + eps)`` folded once."""
-    return (bn.running_mean.float(),
-            bn.weight.detach().float() * torch.rsqrt(bn.running_var.float() + bn.eps),
-            bn.bias.detach().float())
-
-
-def k4_takes(tensors) -> bool:
-    """Whether K4 takes `tensors`' device and dtype: bf16 on a CUDA device.
-    A width it does not take raises in ``bn_act``."""
+def kernel_takes(tensors) -> bool:
+    """Whether the hand-written kernels take `tensors`' device and dtype:
+    bf16 on a CUDA device. A width a kernel does not take raises there."""
     return all(t.device.type == "cuda" and t.dtype == torch.bfloat16 for t in tensors)
 
 
-def k4_engages(train: bool, tensors, bns) -> bool:
-    """Whether an eval-mode BatchNorm epilogue over `tensors` (a conv's
-    output and its residual) runs as kernel K4: not `train`, ``k4_takes``
-    the tensors, and autograd recording nothing (grad off, or no tensor nor
-    BatchNorm weight or bias requires grad)."""
-    if train or not k4_takes(tensors):
+def kernel_engages(train: bool, tensors, sources) -> bool:
+    """Whether a hand-written kernel (K2, K4) runs on `tensors`, its
+    activations, with operands folded from the module tensors `sources`:
+    not `train`, ``kernel_takes`` the tensors, and autograd recording
+    nothing (grad off, or no tensor nor source requires grad), since the
+    kernels have no backward. Anywhere else the modules run as they are:
+    training, float32 policies, the CPU."""
+    if train or not kernel_takes(tensors):
         return False
     return not torch.is_grad_enabled() or not any(
-        t.requires_grad for t in [*tensors, *(p for bn in bns for p in (bn.weight, bn.bias))])
+        t.requires_grad for t in [*tensors, *sources])
 
 
 class BatchNormEpilogue:
     """One conv's eval-mode BatchNorm epilogue: ``relu(bn(y) [+ r])``, with
     ``r`` the `residual` as it is or ``residual_bn(residual)``.
 
-    Where ``k4_engages`` it is one launch of kernel K4
+    Where ``kernel_engages`` it is one launch of kernel K4
     (``ops/kernels/bn_act.py``) on the BatchNorms' folded operands, kept in
     an ``OperandCache`` and folded again only after a weight, bias or
     running statistic changed. Otherwise it is the modules' own float32
@@ -198,7 +190,9 @@ class BatchNormEpilogue:
                  residual_bn: BatchNorm = None) -> torch.Tensor:
         bns = [bn] if residual_bn is None else [bn, residual_bn]
         tensors = [y] if residual is None else [y, residual]
-        if not k4_engages(train, tensors, bns):
+        sources = [t for b in bns
+                   for t in (b.weight, b.bias, b.running_mean, b.running_var)]
+        if not kernel_engages(train, tensors, sources):
             out = bn(y, train)
             if residual is not None:
                 out = out + (residual if residual_bn is None
@@ -206,8 +200,6 @@ class BatchNormEpilogue:
             return torch.relu(out)
         from megaportraits_tpu_torch.ops.kernels.bn_act import bn_act
 
-        sources = [t for b in bns
-                   for t in (b.weight, b.bias, b.running_mean, b.running_var)]
         operands = self.cache.get(
             sources, lambda: [t for b in bns for t in fold_batch_norm(b)])
         return bn_act(y.contiguous(), *operands[:3],
@@ -226,23 +218,16 @@ class ResBlock2D(nn.Module):
     ``BatchNormEpilogue`` (kernel K4 where it engages); ``norm='group'``
     uses AffineGroupNorm(32) (``gn1``, ``gn2``, ``shortcut_gn``), which has
     no batch statistics, so ``train`` changes nothing there.
-
-    With ``use_pallas`` (the JAX switch's name) eligible blocks run in eval
-    mode as two launches of kernel K1 (``ops/kernels/conv3x3.py``), BN
-    folded into the epilogue: conv1+BN1+ReLU, then conv2+BN2+residual+ReLU.
-    Eligibility is the JAX predicate without its TPU-only VMEM bound.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
-                 policy: Policy = DEFAULT_POLICY, use_pallas: bool = False,
-                 norm: str = "batch", device=None):
+                 policy: Policy = DEFAULT_POLICY, norm: str = "batch", device=None):
         super().__init__()
         if norm not in ("batch", "group"):
             raise ValueError(f"unknown norm {norm!r}; expected 'batch' or 'group'")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.policy = policy
-        self.use_pallas = use_pallas
         self.norm = norm
         f = out_channels
         norm_cls, prefix = ((BatchNorm, "bn") if norm == "batch"
@@ -258,22 +243,13 @@ class ResBlock2D(nn.Module):
                                            device=device)
             self.add_module(f"shortcut_{prefix}",
                             norm_cls(f, policy=policy, device=device))
-        self.chain_cache = OperandCache()
         self.epilogue1 = BatchNormEpilogue()
         self.epilogue2 = BatchNormEpilogue()
 
-    def eligible(self, x: torch.Tensor) -> bool:
-        """JAX ``ResBlock2D._eligible`` without the VMEM byte bound."""
-        _, h, w, c = x.shape
-        f = self.out_channels
-        if not self.use_pallas or self.norm != "batch":
-            return False
-        return (c % 128 == 0 and f % 128 == 0 and h % 8 == 0 and w % 8 == 0
-                and c == f)
-
     def chain_params(self):
         """(k1, k2, scale1, shift1, scale2, shift2): HWIO conv weights in the
-        compute dtype and the BN-folded float32 epilogues, for K1/K2."""
+        compute dtype and the BN-folded float32 epilogues, for K2 (whose
+        launches run K1's tile routine)."""
         cdt = self.policy.compute_dtype
         s1, t1 = self.bn1.folded_scale_shift(self.conv1.bias)
         s2, t2 = self.bn2.folded_scale_shift(self.conv2.bias)
@@ -286,11 +262,6 @@ class ResBlock2D(nn.Module):
                 for t in (conv.weight, conv.bias, bn.weight, bn.bias,
                           bn.running_mean, bn.running_var)]
 
-    def cached_chain_params(self):
-        """``chain_params()``, folded again only after a source changed."""
-        return self.chain_cache.get(self.chain_sources(), self.chain_params,
-                                    self.policy.compute_dtype)
-
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.norm == "group":
             identity = x
@@ -300,19 +271,6 @@ class ResBlock2D(nn.Module):
             return torch.relu(self.gn2(self.conv2(out)) + identity)
 
         shortcut = self.in_channels != self.out_channels
-        if not train and self.eligible(x):
-            from megaportraits_tpu_torch.ops.kernels.conv3x3 import conv3x3_bn_act
-
-            identity = self.shortcut_bn(self.shortcut_conv(x), train) if shortcut else x
-            cdt = self.policy.compute_dtype
-            k1, k2, s1, t1, s2, t2 = self.cached_chain_params()
-            outs = []
-            for xi, ri in zip(x.to(cdt), identity.to(cdt)):
-                h1 = conv3x3_bn_act(xi.contiguous(), k1, s1, t1, None, relu=True)
-                outs.append(conv3x3_bn_act(h1, k2, s2, t2, ri.contiguous(),
-                                           relu=True))
-            return torch.stack(outs)
-
         residual = self.shortcut_conv(x) if shortcut else x
         out = self.epilogue1(train, self.conv1(x), self.bn1)
         return self.epilogue2(train, self.conv2(out), self.bn2, residual,

@@ -358,10 +358,18 @@ class BatchNorm(nn.Module):
 
     def folded_scale_shift(self, conv_bias: torch.Tensor):
         """(scale, shift) with BN(conv(x) + conv_bias) == conv(x)*scale + shift
-        in eval mode (JAX ``ResBlock2D._fold``)."""
-        scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        shift = self.bias.float() + (conv_bias.float() - self.running_mean.float()) * scale
-        return scale, shift
+        in eval mode (JAX ``ResBlock2D._fold``), from ``fold_batch_norm``."""
+        m, s, b = fold_batch_norm(self)
+        return s, b + (conv_bias.float() - m) * s
+
+
+def fold_batch_norm(bn: BatchNorm):
+    """(m, s, b), float32 [C], with eval-mode ``bn(y) == (y - m) * s + b``
+    up to float32 reassociation: ``s = weight * rsqrt(running_var + eps)``
+    folded once, K4's operands and the base of K2's."""
+    return (bn.running_mean.float(),
+            bn.weight.detach().float() * torch.rsqrt(bn.running_var.float() + bn.eps),
+            bn.bias.detach().float())
 
 
 class FrozenBN(nn.Module):

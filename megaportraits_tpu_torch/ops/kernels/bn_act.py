@@ -4,7 +4,7 @@
 
 with y [..., C] a conv's output, channels-last; m, s and b [C] float32: a
 BatchNorm's running mean, ``weight * rsqrt(running_var + eps)`` and bias
-(``nn/blocks.fold_batch_norm``); r of y's shape, the identity as it is or,
+(``nn/layers.fold_batch_norm``); r of y's shape, the identity as it is or,
 with (m2, s2, b2), a shortcut conv's output under its own BatchNorm. All
 arithmetic is float32 and the output is rounded to y's dtype once.
 

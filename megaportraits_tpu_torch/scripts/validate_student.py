@@ -16,13 +16,7 @@ trained export (``{'g_variables': ...}``, as ``overfit --export`` and
 ``train-base`` write it; ``<dir>/export`` is tried first) and
 ``--genh-ckpt`` one of Genh (``{'genh_variables': ...}``). Without a Genh
 export and with a Gbase one, the teacher is Gbase alone (a random Genh
-collapses the target). ``--use-chain-kernel`` sets
-``cfg.model.use_chain_kernel``: with ``--teacher-bn-mode running`` the
-teacher's G2d trunk runs on K2 (and so K1), once a sample; batch
-statistics keep it on PyTorch's convolutions (``G2d.chain_ok``). The
-teacher stays float32 with the switch: K2 takes bf16 operands, so G2d
-hands it the trunk's input and weights in bf16 on the card and takes its
-result back in float32; only the trunk loses precision.
+collapses the target).
 """
 
 from __future__ import annotations
@@ -79,13 +73,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "grafted checkpoints (overfit --norm)")
     ap.add_argument("--teacher-bn-mode", choices=["batch", "running"], default="batch",
                     help="teacher forward convention; 'running' (serving) is right "
-                         "for norm=group teachers, and lets K2 carry the trunk")
+                         "for norm=group teachers")
     ap.add_argument("--genh-ckpt", default="",
                     help="export of a TRAINED Genh ({'genh_variables': ...}); without "
                          "it the teacher is Gbase-only")
-    ap.add_argument("--use-chain-kernel", action="store_true",
-                    help="cfg.model.use_chain_kernel: the teacher's G2d trunk on K2 "
-                         "(with --teacher-bn-mode running)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: $MEGAPORTRAITS_PLATFORM, else cuda)")
     return ap.parse_args(argv)
@@ -97,7 +88,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     cfg = Config()
     cfg.model.norm = args.norm
-    cfg.model.use_chain_kernel = args.use_chain_kernel
     cfg.data.train_width = cfg.data.train_height = args.size
     cfg.training.steps_per_epoch = args.steps
     cfg.training.student_epochs = 1
@@ -110,8 +100,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     # A float32 teacher: the higher-fidelity distillation reference. The
     # Student trains at the device's policy.
-    teacher = build_ghr(cfg.make_arch(), policy=FP32_POLICY, device=dev, seed=0,
-                        use_chain_kernel=cfg.model.use_chain_kernel)
+    teacher = build_ghr(cfg.make_arch(), policy=FP32_POLICY, device=dev, seed=0)
     if args.gbase_ckpt:
         _graft(teacher.gbase, args.gbase_ckpt, "g_variables", "--gbase-ckpt", "Gbase")
     if args.genh_ckpt:

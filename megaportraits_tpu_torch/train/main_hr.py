@@ -15,8 +15,8 @@ upsampled by repetition. Checkpoints ``{"genh": state}``, held-out early
 stopping (native targets only), the export ``{"genh_variables"}``.
 
 The frozen Gbase runs in eval mode under ``torch.no_grad()`` inside the step
-(``train/train_hr.py``) and in the evaluator, so with
-``G2d.use_chain_kernel`` set its trunk runs on K2, once a sample.
+(``train/train_hr.py``) and in the evaluator, so in bf16 on the card its
+trunk runs on K2, once a sample.
 
 Under ``torchrun`` the driver is data-parallel as ``train/main_base.py``
 is: each rank keeps its rows of every global batch, the frozen Gbase is

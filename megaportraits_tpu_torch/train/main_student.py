@@ -12,8 +12,8 @@ Student itself is built for ``cfg.training.num_avatars``, as in JAX.
 Checkpoints ``{"student": state}``.
 
 The teacher runs in eval mode under ``torch.no_grad()``
-(``train/train_student.py``), so with ``G2d.use_chain_kernel`` set on its
-Gbase its trunk runs on K2, once a sample.
+(``train/train_student.py``), so in bf16 on the card its Gbase's trunk
+runs on K2, once a sample.
 
 Under ``torchrun`` the driver is data-parallel as ``train/main_base.py``
 is: each rank keeps its rows of every global batch (the avatar draws are
@@ -59,8 +59,7 @@ def train_student(cfg: Config, max_steps: Optional[int] = None,
     seed = cfg.training.seed
     size = cfg.data.train_width
 
-    teacher = build_ghr(cfg.make_arch(), policy=policy, device=dev, seed=seed,
-                        use_chain_kernel=cfg.model.use_chain_kernel)
+    teacher = build_ghr(cfg.make_arch(), policy=policy, device=dev, seed=seed)
     if teacher_ckpt:
         CheckpointManager(teacher_ckpt).restore({"ghr_variables": teacher})
     distribute(teacher, mesh)

@@ -24,9 +24,10 @@ The step is the span ``train.step``, its phases the spans
 ``train.g_forward``, ``train.g_backward`` (remat's recompute falls in it),
 ``train.d_step`` and ``train.optimizer`` (``utils/profiling.annotate``).
 The step trains on PyTorch convolutions under autograd: train-mode
-BatchNorm cannot be folded into the kernels' epilogues, so ``G2d.trunk``
-and ``ResBlock2D`` bypass K1 and K2 when ``train`` is set, as the JAX
-package bypasses its Pallas kernels (which have no backward there).
+BatchNorm cannot be folded into the kernels' epilogues, so the kernels'
+gate (``nn/blocks.kernel_engages``) keeps K2 and K4 out when ``train`` is
+set, as the JAX package bypasses its Pallas kernels (which have no
+backward there).
 
 ``make_train_step`` keeps the JAX function's ``unroll`` (several steps on
 batches stacked on a leading axis, in one call) and ``pool_index`` (a batch

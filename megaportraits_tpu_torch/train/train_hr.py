@@ -4,8 +4,8 @@ Gbase (counterpart of ``megaportraits_tpu/train/train_hr.py``).
 One step does what the JAX step does:
   * the frozen Gbase makes the base image in eval mode (running BatchNorm
     statistics) under ``torch.no_grad()``, JAX's ``stop_gradient``. There
-    the G2d trunk may run on kernel K2 (``G2d.use_chain_kernel``), which has
-    no backward and needs none;
+    the G2d trunk runs on kernel K2 in bf16 on the card, which has no
+    backward and needs none;
   * the base image is pre-upscaled x`upscale` bilinearly with
     ``align_corners=False`` (Genh's own upsamples use True);
   * Genh (in ``.train()``) enhances it with batch statistics and records

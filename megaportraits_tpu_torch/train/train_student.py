@@ -8,8 +8,8 @@ the gradient is taken under the Student's ``Policy.backward_scope``, so a
 float32 Student convolves without TF32 backward too.
 
 The teacher runs in ``.eval()`` under ``torch.no_grad()`` (JAX's
-``stop_gradient``), so with ``G2d.use_chain_kernel`` set its G2d trunk
-runs on kernel K2, once a sample. ``make_teacher_forward`` is the teacher
+``stop_gradient``), so in bf16 on the card its G2d trunk runs on kernel
+K2, once a sample. ``make_teacher_forward`` is the teacher
 on its own, for targets made ahead of the step. The JAX module splits it
 into two jitted graphs and threads the variables as jit arguments, to get
 past the TPU compile service; the port needs neither.

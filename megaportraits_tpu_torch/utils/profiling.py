@@ -104,7 +104,7 @@ def counters() -> Dict[str, int]:
     ``host_uploads`` (tensors made from host data inside a call), each
     with its sites under ``<counter>.<site>``; the kernels' ``launches.*``;
     ``folds`` (the builds of every ``OperandCache``: G2d's trunk operands,
-    the ResBlock2D K1 operands, the BatchNorm epilogues' K4 operands)."""
+    the BatchNorm epilogues' K4 operands)."""
     from megaportraits_tpu_torch.models.warpgen import WarpGenerator
     from megaportraits_tpu_torch.nn import layers
     from megaportraits_tpu_torch.nn.blocks import OperandCache

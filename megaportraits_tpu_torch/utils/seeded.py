@@ -319,12 +319,11 @@ def train_batch(case: TrainCase) -> Dict[str, np.ndarray]:
 
 
 def build_train_case(case: TrainCase, policy, device="cpu",
-                     state: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
-                     chain_kernel: bool = False) -> Dict[str, nn.Module]:
+                     state: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None
+                     ) -> Dict[str, nn.Module]:
     """The case's FULL networks with `policy` on `device`, their weights
     `state` (by default ``train_case_state(case)``): the loss nets frozen,
-    the frozen Gbase (stage 2, and the teacher's in stage 3) in eval mode,
-    its G2d trunk on K2 when `chain_kernel` is set."""
+    the frozen Gbase (stage 2, and the teacher's in stage 3) in eval mode."""
     nets = _train_networks(case, policy, "cpu")
     state = train_case_state(case) if state is None else state
     for name, net in nets.items():
@@ -335,8 +334,6 @@ def build_train_case(case: TrainCase, policy, device="cpu",
     frozen = {"train_hr": "gbase", "train_student": "teacher"}.get(case.name)
     if frozen:
         nets[frozen].eval()
-        g2d = nets[frozen].g2d if frozen == "gbase" else nets[frozen].gbase.g2d
-        g2d.use_chain_kernel = chain_kernel
     return nets
 
 

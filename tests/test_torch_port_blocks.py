@@ -155,20 +155,25 @@ def test_batchnorm_eval_module_does_not_record():
 
 
 def test_resblock2d_kernel_path_matches_jax_fused_path():
-    """use_pallas: the K1 path (plain version on CPU) against the JAX block
-    with use_pallas in Pallas interpret mode, and against the plain block."""
+    """``ResBlock2D.chain_params`` (K2's operands of one block) through K1's
+    plain version twice, conv1+BN1+ReLU then conv2+BN2+residual+ReLU,
+    against the JAX block with use_pallas in Pallas interpret mode, and
+    against the block itself."""
     from jax.experimental.pallas import tpu as pltpu
+
+    from megaportraits_tpu_torch.ops.kernels.conv3x3 import conv3x3_bn_act_plain
 
     x = uniform(np.random.default_rng(12), (1, 16, 16, 128))
     jm = jb.ResBlock2D(128, policy=JP, use_pallas=True)
     v = init_jax(jm, jnp.asarray(x), stats_seed=13)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jm.apply(v, jnp.asarray(x)))
-    fused = bridged(tb.ResBlock2D(128, 128, policy=TP, use_pallas=True), v).eval()
-    plain = bridged(tb.ResBlock2D(128, 128, policy=TP), v).eval()
-    assert fused.eligible(t(x)) and not plain.eligible(t(x))
+    block = bridged(tb.ResBlock2D(128, 128, policy=TP), v).eval()
     with torch.no_grad():
-        got_f, got_p = n(fused(t(x))), n(plain(t(x)))
+        k1, k2, s1, t1, s2, t2 = block.chain_params()
+        h = conv3x3_bn_act_plain(t(x)[0], k1, s1, t1, None, relu=True)
+        got_f = n(conv3x3_bn_act_plain(h, k2, s2, t2, t(x)[0], relu=True))[None]
+        got_p = n(block(t(x)))
     np.testing.assert_allclose(got_f, want, **TOL)
     np.testing.assert_allclose(got_f, got_p, **TOL)
 
@@ -180,7 +185,6 @@ def test_resblock2d_group_norm_not_ported_yet():
         tb.ResBlock2D(32, 32, norm="layer")
     gn = tb.ResBlock2D(32, 64, norm="group")
     assert {"gn1.weight", "gn2.bias", "shortcut_gn.weight"} <= set(gn.state_dict())
-    assert not gn.eligible(torch.zeros(1, 8, 8, 32))
 
 
 def test_instance_norm():

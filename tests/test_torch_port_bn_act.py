@@ -3,9 +3,9 @@ ReLU) in one pass, and the blocks' ``BatchNormEpilogue`` that calls it.
 
 On the CPU: the plain version against the modules' own BatchNorm chain
 (float32, within float32 reassociation: ``((y - m) * r) * w + b`` against
-``(y - m) * (w * r) + b``), the gate ``k4_engages``, the operand cache, and
-the call sites of G2d, Genh and Emtn with the gate opened on the CPU (where
-``bn_act`` runs its plain version). The kernel itself is held against the
+``(y - m) * (w * r) + b``), the kernels' gate ``kernel_engages``, the
+operand cache, and the call sites of G2d, Genh and Emtn with the gate opened
+on the CPU (where ``bn_act`` runs its plain version). The kernel itself is held against the
 plain version on the card in tests/test_torch_port_cuda.py.
 """
 
@@ -29,6 +29,8 @@ from megaportraits_tpu_torch.nn.layers import (
 from megaportraits_tpu_torch.ops.kernels import bn_act as k4
 from megaportraits_tpu_torch.utils import profiling
 
+from torch_port_utils import engaged_on_cpu  # noqa: F401  (a fixture)
+
 # float32 reassociation of a BatchNorm and a sum: a few float32 ulps.
 REASSOCIATION = dict(atol=1e-5, rtol=1e-5)
 
@@ -50,23 +52,6 @@ def _randomize_batch_norms(module, seed):
 
 def _batch_norm(c, seed):
     return _randomize_batch_norms(BatchNorm(c, policy=FP32_POLICY), seed).eval()
-
-
-@pytest.fixture
-def engaged_on_cpu(monkeypatch):
-    """The gate's device and dtype half opened on the CPU (``bn_act`` then
-    runs its plain version), its train and autograd half as it is; returns
-    a list that each call of ``bn_act`` appends its residual form to."""
-    calls = []
-    real = k4.bn_act
-
-    def counting(y, m1, s1, b1, residual=None, m2=None, s2=None, b2=None, relu=True):
-        calls.append("none" if residual is None else ("identity" if m2 is None else "shortcut"))
-        return real(y, m1, s1, b1, residual, m2, s2, b2, relu)
-
-    monkeypatch.setattr(blocks, "k4_takes", lambda tensors: True)
-    monkeypatch.setattr(k4, "bn_act", counting)
-    return calls
 
 
 @pytest.mark.parametrize("relu", [True, False])
@@ -163,7 +148,8 @@ def test_k4_engages_by_device_dtype_train_and_autograd(case, engaged):
     elif case.startswith("batch norm weight frozen"):
         grad = True
     with torch.set_grad_enabled(grad):
-        assert blocks.k4_engages(train, [y, r], [bn]) is engaged
+        sources = [bn.weight, bn.bias, bn.running_mean, bn.running_var]
+        assert blocks.kernel_engages(train, [y, r], sources) is engaged
 
 
 def _old_resblock2d(block, x, train):
@@ -293,8 +279,10 @@ def _flat(out):
 def _tiny_case(name):
     gen = torch.Generator().manual_seed(20)
     if name.startswith("g2d"):
-        model = _tiny(G2d, 21, use_chain_kernel=name.endswith("K2"))
-        x = torch.randn(2, 8, 8, TINY.volume_channels, generator=gen)
+        # Sides of 12 keep the trunk off K2 (G2d asks for multiples of 8).
+        side = 8 if name.endswith("K2") else 12
+        model = _tiny(G2d, 21)
+        x = torch.randn(2, side, side, TINY.volume_channels, generator=gen)
     elif name == "genh":
         model, x = _tiny(Genh, 22), torch.rand(2, 32, 32, 3, generator=gen)
     else:
@@ -345,6 +333,6 @@ def test_every_eval_batch_norm_of_a_tiny_forward_goes_through_k4(name, engaged_o
 
 def _plain_forward(model, x):
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(blocks, "k4_takes", lambda tensors: False)
+        mp.setattr(blocks, "kernel_takes", lambda tensors: False)
         with torch.no_grad():
             return model(x, train=False)

@@ -7,8 +7,8 @@ Tolerances. The emulation sums each output over steps of one tap and one
 the two differ by the order of summation: 2e-5 absolute and relative at
 these sizes (outputs of order 1). Against the JAX package's Pallas kernel in
 interpret mode it is the 1e-4 that tests/test_torch_port_kernels.py uses
-for K1. G2d against the JAX G2d, both with the chain switch on: 2e-4, as in
-tests/test_torch_port_models.py.
+for K1. G2d with the kernels' gate opened on the CPU against the JAX G2d
+with its chain switch on: 2e-4, as in tests/test_torch_port_models.py.
 """
 
 import numpy as np
@@ -31,8 +31,10 @@ from megaportraits_tpu_torch.core.dtypes import FP32_POLICY as TP
 from megaportraits_tpu_torch.infer.streaming import ReenactmentSession
 from megaportraits_tpu_torch.models import g2d as tg2
 from megaportraits_tpu_torch.models.gbase import build_gbase
+from megaportraits_tpu_torch.nn import blocks
 from megaportraits_tpu_torch.ops.kernels import conv3x3 as k1
 
+from torch_port_utils import engaged_on_cpu  # noqa: F401  (a fixture)
 from torch_port_utils import bridged, n, numpy_init, t, uniform
 
 ORDER_TOL = dict(atol=2e-5, rtol=2e-5)
@@ -158,7 +160,7 @@ def _same(a, b):
 
 def test_cached_trunk_operands_equal_a_fresh_fold(g2d_case):
     x, _, (v0, _) = g2d_case
-    mod = bridged(tg2.G2d(policy=TP, arch=TINY, use_chain_kernel=True), v0).eval()
+    mod = bridged(tg2.G2d(policy=TP, arch=TINY), v0).eval()
     cached = mod.cached_trunk_chain_params()
     assert mod.trunk_cache.folds == 1
     assert _same(cached, mod.trunk_chain_params())
@@ -172,12 +174,12 @@ def test_cached_trunk_operands_equal_a_fresh_fold(g2d_case):
     assert not any(a.requires_grad for a in cached)
 
 
-def test_trunk_operands_follow_the_weights_and_match_jax(g2d_case):
+def test_trunk_operands_follow_the_weights_and_match_jax(g2d_case, engaged_on_cpu):
     """After each way a trunk tensor can change, the next call folds again
     and the output equals the JAX G2d's (chain kernel in interpret mode) on
     the same variables, and differs from the output before."""
     x, jmod, (v0, v1) = g2d_case
-    mod = bridged(tg2.G2d(policy=TP, arch=TINY, use_chain_kernel=True), v0).eval()
+    mod = bridged(tg2.G2d(policy=TP, arch=TINY), v0).eval()
 
     def run():
         with torch.no_grad():
@@ -227,7 +229,7 @@ def test_trunk_operands_follow_the_weights_and_match_jax(g2d_case):
 
 def test_trunk_operands_follow_dtype_and_replaced_tensors(g2d_case):
     _, _, (v0, _) = g2d_case
-    mod = bridged(tg2.G2d(policy=TP, arch=TINY, use_chain_kernel=True), v0).eval()
+    mod = bridged(tg2.G2d(policy=TP, arch=TINY), v0).eval()
     mod.cached_trunk_chain_params()
     mod.res0.conv1.weight.data = mod.res0.conv1.weight.data.clone() * 2.0
     got = mod.cached_trunk_chain_params()
@@ -239,40 +241,14 @@ def test_trunk_operands_follow_dtype_and_replaced_tensors(g2d_case):
     assert got[1].dtype == torch.float32  # scales stay float32
 
 
-def test_resblock2d_kernel_path_folds_once():
-    """ResBlock2D's use_pallas path keeps its folded operands too."""
-    from megaportraits_tpu_torch.nn.blocks import ResBlock2D
-    from megaportraits_tpu_torch.nn.layers import init_parameters
-
-    rng = np.random.default_rng(31)
-    block = init_parameters(ResBlock2D(128, 128, policy=TP, use_pallas=True),
-                            seed=6).eval()
-    with torch.no_grad():
-        block.bn1.running_mean.copy_(t(uniform(rng, (128,), -0.2, 0.2)))
-    x = t(uniform(rng, (1, 8, 8, 128)))
-    plain = ResBlock2D(128, 128, policy=TP).eval()
-    plain.load_state_dict(block.state_dict())
-    with torch.no_grad():
-        a, b = block(x), block(x)
-        want = plain(x)
-    assert block.chain_cache.folds == 1 and torch.equal(a, b)
-    np.testing.assert_allclose(n(a), n(want), atol=1e-4, rtol=1e-4)
-    with torch.no_grad():
-        block.bn2.weight.mul_(0.5)
-        c = block(x)
-    assert block.chain_cache.folds == 2
-    assert (c - a).abs().max() > 1e-3
-
-
-def test_drive_loop_folds_the_trunk_once():
+def test_drive_loop_folds_the_trunk_once(engaged_on_cpu, monkeypatch):
     model = build_gbase("tiny", policy=TP, device="cpu", seed=5)
-    model.g2d.use_chain_kernel = True
     rng = np.random.default_rng(32)
     session = ReenactmentSession(model=model, bn_mode="running")
     session.set_source(t(uniform(rng, (1, 64, 64, 3), 0.0, 1.0)))
     frames = [session(t(uniform(rng, (1, 64, 64, 3), 0.0, 1.0))) for _ in range(3)]
     assert model.g2d.trunk_cache.folds == 1
     assert all(f.shape == (1, 64, 64, 3) for f in frames)
-    model.g2d.use_chain_kernel = False
+    monkeypatch.setattr(blocks, "kernel_takes", lambda tensors: False)
     plain = session(t(uniform(np.random.default_rng(32), (1, 64, 64, 3), 0.0, 1.0)))
     assert plain.shape == (1, 64, 64, 3) and model.g2d.trunk_cache.folds == 1

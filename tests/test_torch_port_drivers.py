@@ -61,6 +61,7 @@ from megaportraits_tpu_torch.train.state import TrainState, make_optimizer
 from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
 from megaportraits_tpu_torch.utils.jax_bridge import load_jax_variables
 
+from torch_port_utils import engaged_on_cpu  # noqa: F401  (a fixture)
 from torch_port_utils import numpy_init
 
 SIZE = 64
@@ -170,15 +171,14 @@ def test_the_best_snapshot_survives_a_later_step():
                            exported["g2d.res0.conv1.weight"])
 
 
-def test_for_genh_scores_match_jax_and_run_k2_once_a_row(monkeypatch):
-    """Stage 2: the frozen Gbase (trunk on K2's wrapper, its plain version
-    on the CPU) at 64, x2, Genh at 128; 3 pairs in batches of 2, so the
-    padded row runs through K2 too."""
+def test_for_genh_scores_match_jax_and_run_k2_once_a_row(monkeypatch, engaged_on_cpu):
+    """Stage 2: the frozen Gbase (the kernels' gate opened on the CPU: the
+    trunk on K2's wrapper, its plain version) at 64, x2, Genh at 128; 3
+    pairs in batches of 2, so the padded row runs through K2 too."""
     calls = []
     wrapped = k2.resblock_chain
     monkeypatch.setattr(k2, "resblock_chain", lambda *a: calls.append(1) or wrapped(*a))
     jgbase, jgstate, gbase = _gbase_pair("batch")
-    gbase.g2d.use_chain_kernel = True
     jgenh = JGenh(policy=JP, arch=JTINY)
     xhr = jnp.zeros((BATCH, 2 * SIZE, 2 * SIZE, 3), jnp.float32)
     gv = numpy_init(jgenh, xhr, seed=4, stats_seed=5)

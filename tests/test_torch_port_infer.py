@@ -51,6 +51,7 @@ from megaportraits_tpu_torch.infer import inference, video
 from megaportraits_tpu_torch.models.gbase import Gbase
 from megaportraits_tpu_torch.utils.image import read_image, save_image
 
+from torch_port_utils import engaged_on_cpu  # noqa: F401  (a fixture)
 from torch_port_utils import bridged, numpy_init
 
 SIZE = 64
@@ -247,12 +248,12 @@ def test_inference_base_matches_jax_on_png_and_jpeg(case, jpeg_inputs, kind):
 
 @pytest.mark.parametrize("kind,out_ext", [("png", ".png"), ("jpg", ".jpg"), ("png", ".jpg")])
 def test_infer_command_from_yaml_without_host_libraries(case, jpeg_inputs, kind, out_ext,
-                                                        monkeypatch, tmp_path):
+                                                        engaged_on_cpu, monkeypatch, tmp_path):
     """``python -m megaportraits_tpu_torch infer --config x.yaml`` with
-    PyYAML, PIL and cv2 blocked, and ``model.use_chain_kernel: true``: the
-    trunk goes through K2's wrapper once (its plain version on the CPU),
-    the PNG is the in-process result bit for bit, and the JPEG is the bytes
-    PIL writes for it (what JAX's command writes)."""
+    PyYAML, PIL and cv2 blocked, and the kernels' gate opened on the CPU:
+    the trunk goes through K2's wrapper once (its plain version), the PNG
+    is the in-process result bit for bit, and the JPEG is the bytes PIL
+    writes for it (what JAX's command writes)."""
     from PIL import Image
 
     from megaportraits_tpu_torch.ops.kernels import resblock_chain as rc
@@ -268,7 +269,7 @@ def test_infer_command_from_yaml_without_host_libraries(case, jpeg_inputs, kind,
     config = tmp_path / "infer.yaml"
     config.write_text(
         f"data:\n  train_width: {SIZE}\n  train_height: {SIZE}\n"
-        "model:\n  arch: tiny\n  use_bf16: false\n  use_chain_kernel: true\n"
+        "model:\n  arch: tiny\n  use_bf16: false\n"
         f"inference:\n  checkpoint_path: '{root}'\n  source_image: {src}\n"
         f"  driving_image: \"{drv}\"\n  output_image: {out}  # the result\n")
     calls = []

@@ -33,6 +33,7 @@ from megaportraits_tpu_torch.models import repvgg as tr
 from megaportraits_tpu_torch.models import resnet as tres
 from megaportraits_tpu_torch.models import warpgen as tw
 
+from torch_port_utils import engaged_on_cpu  # noqa: F401  (a fixture)
 from torch_port_utils import bridged, init_jax, n, t, uniform
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -164,21 +165,26 @@ def g2d_case():
 
 
 @pytest.mark.parametrize("chain", [False, True])
-def test_g2d(g2d_case, chain):
-    """G2d with the trunk plain or through K2 (its plain version on CPU)."""
+def test_g2d(g2d_case, chain, request):
+    """G2d with the kernels' gate shut, or opened on the CPU: the trunk
+    through K2 and the decoder's BatchNorms through K4 (their plain
+    versions)."""
+    calls = request.getfixturevalue("engaged_on_cpu") if chain else []
     x, v, want = g2d_case
-    got = _eval(tg2.G2d(policy=TP, arch=TINY, use_chain_kernel=chain), v, t(x))
+    got = _eval(tg2.G2d(policy=TP, arch=TINY), v, t(x))
     assert got.shape == (2, 64, 64, 3) and got.dtype == torch.float32
+    assert len(calls) == (6 if chain else 0)  # the decoder's three blocks
     np.testing.assert_allclose(n(got), want, atol=2e-4, rtol=2e-4)
 
 
-def test_g2d_chain_against_jax_chain_interpret(g2d_case):
-    """Both packages' chain switches on: JAX in Pallas interpret mode."""
+def test_g2d_chain_against_jax_chain_interpret(g2d_case, engaged_on_cpu):
+    """JAX's chain switch on, in Pallas interpret mode, against the port
+    with the kernels' gate opened on the CPU."""
     from jax.experimental.pallas import tpu as pltpu
 
     x, v, _ = g2d_case
     jmod = jg2.G2d(policy=JP, arch=JT, use_chain_kernel=True)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jmod.apply(v, jnp.asarray(x)))
-    got = _eval(tg2.G2d(policy=TP, arch=TINY, use_chain_kernel=True), v, t(x))
+    got = _eval(tg2.G2d(policy=TP, arch=TINY), v, t(x))
     np.testing.assert_allclose(n(got), want, atol=2e-4, rtol=2e-4)

@@ -53,6 +53,8 @@ from megaportraits_tpu_torch.scripts import check_device, overfit, train_smoke
 from megaportraits_tpu_torch.scripts import validate_student
 from megaportraits_tpu_torch.train.state import TrainState, make_optimizer
 
+from torch_port_utils import engaged_on_cpu  # noqa: F401  (a fixture)
+
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SIZE = 64
 CLIPS = ["clipA", "clipB", "clipC"]
@@ -449,8 +451,7 @@ def _stub_student(monkeypatch, jrec, trec):
         def forward(self, a, b):
             return torch.mean(torch.abs(a - b), dim=(1, 2, 3))
 
-    def t_build_ghr(arch, policy, device, seed, use_chain_kernel):
-        trec.built["use_chain_kernel"] = use_chain_kernel
+    def t_build_ghr(arch, policy, device, seed):
         trec.built["teacher_policy"] = policy
         return _TTeacher()
 
@@ -502,7 +503,6 @@ def test_validate_student_matches_the_jax_script(teacher, clip_dir, tmp_path, mo
         args("port") + ["--device", "cpu"]))
     assert jrc == trc == 0
     assert [line.replace("port_ckpt", "jax_ckpt") for line in tout] == jout
-    assert trec.built.pop("use_chain_kernel") is False
     assert trec.built.pop("teacher_policy") == FP32_POLICY
     assert trec.built == jrec.built
     assert trec.built["include_enh"] == (teacher != "gbase")
@@ -524,10 +524,8 @@ def test_validate_student_names_what_it_cannot_restore(clip_dir, tmp_path, monke
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     with pytest.raises(SystemExit, match="--gbase-ckpt: nothing restorable at"):
         validate_student.main(["--size", str(SIZE), "--video-dir", str(clip_dir),
-                               "--device", "cpu", "--gbase-ckpt", str(tmp_path / "none"),
-                               "--use-chain-kernel"])
-    assert trec.built["use_chain_kernel"] is True
-    assert trec.built["teacher_policy"] == FP32_POLICY  # the switch keeps it float32
+                               "--device", "cpu", "--gbase-ckpt", str(tmp_path / "none")])
+    assert trec.built["teacher_policy"] == FP32_POLICY
 
 
 # -- the tools for real at TINY on the CPU ---------------------------------------------
@@ -575,10 +573,11 @@ def one_cpu_thread():
 
 
 def test_overfit_and_validate_student_run_at_tiny(tiny, clip_dir, tmp_path, capsys,
-                                                  one_cpu_thread):
+                                                  one_cpu_thread, request):
     """overfit with a pool, held-out evaluation and an export; the export
     restores into a fresh TINY Gbase bit for bit; validate_student
-    distils behind it with the chain-kernel switch and running statistics."""
+    distils behind it with running statistics and the kernels' gate opened
+    on the CPU (the teacher's trunk through K2's plain version)."""
     result = overfit.main(["--size", str(SIZE), "--steps", "3", "--batch", "2",
                            "--video-dir", str(clip_dir), "--json-file",
                            str(clip_dir / "overfit.json"), "--pool", "2", "--eval-every",
@@ -596,10 +595,11 @@ def test_overfit_and_validate_student_run_at_tiny(tiny, clip_dir, tmp_path, caps
     for k, v in fresh.state_dict().items():
         assert torch.equal(v, saved[k]), k
 
+    request.getfixturevalue("engaged_on_cpu")
     assert validate_student.main([
         "--size", str(SIZE), "--steps", "3", "--batch", "2", "--video-dir", str(clip_dir),
         "--gbase-ckpt", str(tmp_path / "export"), "--teacher-bn-mode", "running",
-        "--use-chain-kernel", "--out", str(tmp_path / "quality"), "--device", "cpu"]) == 0
+        "--out", str(tmp_path / "quality"), "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "teacher: grafted trained Gbase from" in out
     losses = [float(x) for x in re.findall(r"distill MSE (\S+)", out)]

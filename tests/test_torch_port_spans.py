@@ -28,6 +28,8 @@ from megaportraits_tpu_torch.ops.kernels.resblock_chain import resblock_chain
 from megaportraits_tpu_torch.train.train_base import init_states, make_train_step
 from megaportraits_tpu_torch.utils import profiling
 
+from torch_port_utils import engaged_on_cpu  # noqa: F401  (a fixture)
+
 SIZE = 64
 CASTING = Policy(param_dtype=torch.float64, compute_dtype=torch.float32)
 # The ranges the benchmark's traced run opens around the program's layers
@@ -43,9 +45,8 @@ CLOCK_TOLERANCE_NS = 50_000
 IMAGES = ("source", "driving", "source_next", "source_star", "driving_star")
 
 
-def _session(policy=FP32_POLICY, chain=False):
+def _session(policy=FP32_POLICY):
     gbase = build_gbase(TINY, policy=policy, device="cpu", seed=3)
-    gbase.g2d.use_chain_kernel = chain
     session = ReenactmentSession(model=gbase)
     session.set_source(_frames(0))
     return session
@@ -196,17 +197,23 @@ def test_a_float32_policy_casts_nothing():
     assert after["host_uploads"] == before["host_uploads"] + 3
 
 
-def test_counters_hold_the_kernel_launches_and_the_trunk_folds():
-    session = _session(chain=True)  # the trunk folds its K2 operands at its first call
+def test_counters_hold_the_kernel_launches_and_the_trunk_folds(engaged_on_cpu):
+    """With the kernels' gate opened on the CPU the trunk folds its K2
+    operands at its first call, and each K4 epilogue its own, once."""
+    session = _session()
     snap = profiling.counters()
     assert snap["launches.conv3x3_bn_act"] == conv3x3_bn_act.launches
     assert snap["launches.resblock_chain"] == resblock_chain.launches
     assert "launches.fused_resblock_chain" in snap
     folds = session.model.g2d.trunk_cache.folds
     session(_frames(1))
+    first = profiling.counters()["folds"]
     session(_frames(2))
     assert session.model.g2d.trunk_cache.folds == folds + 1
-    assert profiling.counters()["folds"] == snap["folds"] + 1
+    # The first frame's new folds: the trunk's and the two epilogues of
+    # each of G2d's three decoder blocks (Emtn's folded at set_source).
+    assert first == snap["folds"] + 1 + 2 * 3
+    assert profiling.counters()["folds"] == first
 
 
 def test_frames_are_the_same_with_the_capture_on_and_off(tmp_path):

@@ -158,7 +158,7 @@ def test_res_block_bn_epilogues_against_the_chain(monkeypatch, shape, case):
         calls.append(args[4] if len(args) > 4 else kw.get("residual"))
         return real(*args, **kw)
 
-    monkeypatch.setattr(blocks, "k4_takes", lambda tensors: True)
+    monkeypatch.setattr(blocks, "kernel_takes", lambda tensors: True)
     monkeypatch.setattr(k4, "bn_act", counting)
     x = torch.randn(2, 8, 8, cin, generator=torch.Generator().manual_seed(7))
     train = case == "train"
@@ -185,7 +185,7 @@ def test_a_student_step_runs_every_epilogue_through_k4(monkeypatch):
         calls.append(1)
         return real(*args, **kw)
 
-    monkeypatch.setattr(blocks, "k4_takes", lambda tensors: True)
+    monkeypatch.setattr(blocks, "kernel_takes", lambda tensors: True)
     monkeypatch.setattr(k4, "bn_act", counting)
     got = session(x)
     assert len(calls) == EPILOGUES

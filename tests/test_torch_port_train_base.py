@@ -140,31 +140,21 @@ def port(reference):
 # ---------------------------------------------------------------------------
 
 
-def _without_port_fields(cfg):
-    """asdict of a port Config less its one field that JAX's lacks
-    (model.use_chain_kernel, JAX's G2d switch), which must be at its
-    default, False."""
-    d = dataclasses.asdict(cfg)
-    model = d["model"] if "model" in d else d
-    assert model.pop("use_chain_kernel") is False
-    return d
-
-
 def test_config_defaults_match_jax():
-    """Every JAX field with JAX's default; the port's one extra field is
-    model.use_chain_kernel, off by default as on JAX's G2d."""
-    assert _without_port_fields(tconfig.Config()) == dataclasses.asdict(jconfig.Config())
-    assert (_without_port_fields(tconfig.ModelConfig().parity())
+    """Every JAX field with JAX's default, and no field of the port's own."""
+    assert dataclasses.asdict(tconfig.Config()) == dataclasses.asdict(jconfig.Config())
+    assert (dataclasses.asdict(tconfig.ModelConfig().parity())
             == dataclasses.asdict(jconfig.ModelConfig().parity()))
-    port_only = ({f.name for f in dataclasses.fields(tconfig.ModelConfig)}
-                 - {f.name for f in dataclasses.fields(jconfig.ModelConfig)})
-    assert port_only == {"use_chain_kernel"}
+    for port, jax_cls in ((tconfig.Config, jconfig.Config),
+                          (tconfig.ModelConfig, jconfig.ModelConfig)):
+        assert ([f.name for f in dataclasses.fields(port)]
+                == [f.name for f in dataclasses.fields(jax_cls)])
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(CONFIG_DIR, "*", "*.yaml"))),
                          ids=os.path.basename)
 def test_load_config_matches_jax_field_for_field(path):
-    got = _without_port_fields(tconfig.load_config(path))
+    got = dataclasses.asdict(tconfig.load_config(path))
     assert got == dataclasses.asdict(jconfig.load_config(path))
 
 
@@ -177,15 +167,15 @@ def test_make_arch_and_make_gbase():
     model = cfg.make_gbase(device="cpu")
     assert model.policy == FP32_POLICY
     assert model.motion_encoder.descriptor_input_size == 256
-    assert model.g2d.use_chain_kernel is False
 
 
 def test_make_gbase_use_chain_kernel(monkeypatch):
-    """model.use_chain_kernel puts the trunk on K2 where JAX's rule allows
-    (eval, norm 'batch', sides % 8): the wrapper is called once a sample
-    there, and never in train mode or with norm 'group'. On the CPU the
-    wrapper runs its plain version, so the outputs equal the plain
-    blocks'."""
+    """make_gbase's trunk engages K2 where the kernels' gate opens and
+    JAX's rule allows (eval, norm 'batch', sides % 8): the wrapper is
+    called once a sample there, and never in train mode, with the gate
+    shut or with norm 'group'. On the CPU the wrapper runs its plain
+    version, so the outputs equal the plain blocks'."""
+    from megaportraits_tpu_torch.nn import blocks
     from megaportraits_tpu_torch.ops.kernels import resblock_chain as rc
 
     calls = []
@@ -198,24 +188,23 @@ def test_make_gbase_use_chain_kernel(monkeypatch):
     monkeypatch.setattr(rc, "resblock_chain", counting)
     cfg = tconfig.Config()
     cfg.model.arch, cfg.model.use_bf16 = "tiny", False
-    cfg.model.use_chain_kernel = True
     gbase = cfg.make_gbase(device="cpu")
-    assert gbase.g2d.use_chain_kernel is True
-    cfg.model.use_chain_kernel = False
-    off = cfg.make_gbase(device="cpu")
     x = torch.from_numpy(np.random.default_rng(0).random((2, 8, 8, cfg.make_arch().ch(512)),
                                                          dtype=np.float32))
     with torch.no_grad():
+        shut = gbase.g2d.trunk(x)
+        assert not calls
+        monkeypatch.setattr(blocks, "kernel_takes", lambda tensors: True)
         got = gbase.g2d.trunk(x)
         assert len(calls) == 2
-        torch.testing.assert_close(got, off.g2d.trunk(x), rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got, shut, rtol=1e-5, atol=1e-5)
         gbase.g2d.trunk(x, train=True)
         assert len(calls) == 2
-    cfg.model.norm, cfg.model.use_chain_kernel = "group", True
+    cfg.model.norm = "group"
     grouped = cfg.make_gbase(device="cpu")
     with torch.no_grad():
         grouped.g2d.trunk(x)
-    assert grouped.g2d.use_chain_kernel is True and len(calls) == 2
+    assert len(calls) == 2
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,10 @@ its running statistics, base 256, ``target_hr`` 512, batch 2 (the config
 trains 512 -> 1024). (f) one ``make_student_train_step`` step of a Student
 with 3 avatars, indices [2, 0], at 256, batch 2 (the config trains at
 512): the frozen GHR teacher inline, then, from the same weights, with
-'target01' given. Float32 on both sides; the frozen Gbase's G2d trunk runs
-through K2's wrapper (its plain version on CPU tensors), once a sample.
+'target01' given. Float32 on both sides; the kernels' gate is opened on
+the CPU, so the frozen Gbase's G2d trunk runs through K2's wrapper (its
+plain version on CPU tensors), once a sample, and its eval-mode
+BatchNorms through K4's.
 Weights and images are numpy draws from the cases' seeds, as in
 test_torch_port_train_full_width.py, which states the rule of the
 tolerances: the larger of twice the port's own self-gap (the golden's,
@@ -64,7 +66,7 @@ def outcomes(request):
     _, _, weights_sha, batch_sha = tw.draws(case)
     with tw.one_case_at_a_time():
         want = tw.jax_train_case_apart(case)
-        port, calls = tw.port_train_case_apart(case, chain_kernel=True)
+        port, calls = tw.port_train_case_apart(case, engaged=True)
     return dict(case=case, port=port, jax=want, calls=calls,
                 weights_sha=weights_sha, batch_sha=batch_sha)
 

@@ -7,9 +7,10 @@ TINY, FP32 on both sides, images at 64 and the HR target at 128, batch 2,
 the weights drawn with numpy and bridged to the port. Each JAX step runs
 once, with an optax transformation that applies no update and keeps the
 gradients as its state, so the gradients are read from the step itself.
-The port's frozen Gbase runs its G2d trunk through K2's wrapper
-(``use_chain_kernel``), which on CPU tensors is K2's plain version; the
-tests count its calls. The images are 64 and not the 32 of the JAX
+The port's frozen Gbase runs with the kernels' gate opened on the CPU
+(``torch_port_utils.engaged_on_cpu``): its G2d trunk goes through K2's
+wrapper, which on CPU tensors is K2's plain version, and its eval-mode
+BatchNorms through K4's; the tests count K2's calls. The images are 64 and not the 32 of the JAX
 package's own stage tests: at 32 the trunk's map is 4x4, which K2 does not
 take (G2d asks for H and W divisible by 8), and batch statistics over the
 1x1 maps of Emtn's ResNets, two values each, are so ill-conditioned that
@@ -65,6 +66,7 @@ from megaportraits_tpu_torch.train.train_student import (
 )
 from megaportraits_tpu_torch.utils.jax_bridge import jax_to_state_dict, load_jax_variables
 
+from torch_port_utils import engaged_on_cpu  # noqa: F401  (a fixture)
 from torch_port_utils import grad_errors, keep_gradients, n, numpy_init, t
 
 SIZE = 64
@@ -125,11 +127,9 @@ def teacher_vars(dummy):
 
 
 @pytest.fixture
-def teacher(teacher_vars):
-    """The port's GHR on the same weights, its G2d trunk on K2's wrapper."""
-    model = load_jax_variables(GHR(policy=FP32_POLICY, arch=TINY), teacher_vars)
-    model.gbase.g2d.use_chain_kernel = True
-    return model
+def teacher(teacher_vars, engaged_on_cpu):
+    """The port's GHR on the same weights, the kernels' gate opened."""
+    return load_jax_variables(GHR(policy=FP32_POLICY, arch=TINY), teacher_vars)
 
 
 def _stage_equal(model, before):

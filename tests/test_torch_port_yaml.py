@@ -59,7 +59,7 @@ def test_the_tests_written_configs():
     tests write: nested mappings, paths, None, a flow-sized mesh."""
     for mesh in (None, {"data": 2}, {"data": 1, "model": 2}):
         cfg = {"data": {"train_width": 64, "train_height": 64},
-               "model": {"arch": "tiny", "use_bf16": False, "use_chain_kernel": True},
+               "model": {"arch": "tiny", "use_bf16": False},
                "training": dict(video_dir="/tmp/pytest-of-x/clips0",
                                 json_file="/tmp/pytest-of-x/clips0/meta.json",
                                 checkpoint_path="/tmp/x/ckpt", batch_size=2,
@@ -195,13 +195,12 @@ def test_property_safe_dump_round_trip(tree, style):
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
 def test_load_config_reads_through_the_subset(path, monkeypatch):
     """load_config goes through the reader (PyYAML blocked) and gives JAX's
-    Config, field for field, plus the port's use_chain_kernel at False."""
+    Config, field for field."""
     import sys
 
     want = dataclasses.asdict(jconfig.load_config(path))
     monkeypatch.setitem(sys.modules, "yaml", None)
     got = dataclasses.asdict(tconfig.load_config(path))
-    assert got["model"].pop("use_chain_kernel") is False
     assert got == want
 
 
@@ -211,7 +210,10 @@ def test_load_config_sets_use_chain_kernel_and_filters_like_jax(tmp_path):
                     "training:\n  lr: 1e-5\n  batch_size: 2\n")
     got = tconfig.load_config(str(path))
     want = jconfig.load_config(str(path))
-    assert got.model.use_chain_kernel is True
+    # use_chain_kernel, a key older configs wrote, is dropped like any other
+    # unknown key.
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert not hasattr(got.model, "use_chain_kernel")
     assert got.model.arch == want.model.arch == "tiny"
     # PyYAML's rule, kept: '1e-5' is a string in both packages.
     assert got.training.lr == want.training.lr == "1e-5"
@@ -227,7 +229,6 @@ def test_bom_prefixed_config_reads_as_the_plain_one(path, tmp_path):
     bom.write_bytes(b"\xef\xbb\xbf" + open(path, "rb").read())
     assert same(load_file(str(bom)), load_file(path))
     got = dataclasses.asdict(tconfig.load_config(str(bom)))
-    got["model"].pop("use_chain_kernel")
     assert got == dataclasses.asdict(jconfig.load_config(str(bom)))
     assert got == dataclasses.asdict(jconfig.load_config(path))
 

@@ -22,8 +22,9 @@ Write the golden ``tests/data/torch_port_train_goldens.npz`` with
     python tests/torch_port_train_full_width.py
 
 (about 12 minutes on 8 CPU cores, 18 GB). ``--jax <case> <out.npz>`` and
-``--port <case> <out.npz> [--chain-kernel]`` take one case's step in one
-package, as the tests do in a child process. Write the
+``--port <case> <out.npz> [--engaged]`` take one case's step in one
+package, as the tests do in a child process (``--engaged`` opens the
+kernels' gate on the CPU, as ``torch_port_utils.engaged_on_cpu`` does). Write the
 golden only after a change in the JAX package or in seeded.py's draw rule,
 and say why in CHANGES.md: the
 golden is what the port's training steps are held against on the card
@@ -265,29 +266,33 @@ def jax_train_case_apart(case):
     return _nested(_apart("--jax", case.name))
 
 
-def port_train_case_apart(case, chain_kernel=False):
+def port_train_case_apart(case, engaged=False):
     """``port_train_case`` of the case's own draws in a child process, and
     how many times K2's wrapper was called there (its own counter counts
     only launches on the card)."""
-    flat = _apart("--port", case.name, *(["--chain-kernel"] if chain_kernel else []))
+    flat = _apart("--port", case.name, *(["--engaged"] if engaged else []))
     return _nested({k: v for k, v in flat.items() if k != "k2_calls"}), int(flat["k2_calls"])
 
 
-def port_train_case(case, state, batch, perturb=None, chain_kernel=False):
+def port_train_case(case, state, batch, perturb=None, engaged=False):
     """The case's runs on the port on the CPU in float32 from the draws
     `state` (every weight perturbed by ``seeded.perturb_weights`` with
-    `perturb`, a (seed, per_channel) pair, if given; the frozen Gbase's
-    trunk through K2's wrapper with `chain_kernel`)."""
+    `perturb`, a (seed, per_channel) pair, if given; with `engaged` the
+    kernels' gate opened on the CPU, so that the frozen Gbase's trunk goes
+    through K2's wrapper and its eval-mode BatchNorms through K4's)."""
     import torch
 
     from megaportraits_tpu_torch.core.dtypes import FP32_POLICY
+    from megaportraits_tpu_torch.nn import blocks
     from megaportraits_tpu_torch.utils import seeded
 
-    nets = seeded.build_train_case(case, FP32_POLICY, "cpu", state, chain_kernel)
+    nets = seeded.build_train_case(case, FP32_POLICY, "cpu", state)
     if perturb is not None:
         seeded.perturb_weights(nets, *perturb)
     tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
-    threads = torch.get_num_threads()
+    threads, takes = torch.get_num_threads(), blocks.kernel_takes
+    if engaged:
+        blocks.kernel_takes = lambda tensors: True
     if case.name == "train_student":
         # PyTorch's multi-threaded CPU backward of the Student's strided 1x1
         # convolutions corrupts the heap (test_torch_port_train_stages.py,
@@ -297,9 +302,10 @@ def port_train_case(case, state, batch, perturb=None, chain_kernel=False):
         return seeded.run_train_case(case, nets, tensors)
     finally:
         torch.set_num_threads(threads)
+        blocks.kernel_takes = takes
 
 
-def self_gaps(case, state, batch, chain_kernel=False):
+def self_gaps(case, state, batch, engaged=False):
     """Per run, the port's self-gaps: for each of ``PERTURBATIONS`` the gaps
     of the step with every weight perturbed to the step on the drawn
     weights, and per quantity the largest: {'whole': on the whole outcomes,
@@ -314,10 +320,10 @@ def self_gaps(case, state, batch, chain_kernel=False):
                 "samples": seeded.train_gaps(seeded.comparable(seeded.train_samples(a)),
                                              seeded.comparable(seeded.train_samples(b)))}
 
-    drawn = port_train_case(case, state, batch, chain_kernel=chain_kernel)
+    drawn = port_train_case(case, state, batch, engaged=engaged)
     out = {run: {"whole": {}, "samples": {}} for run in case.runs}
     for perturb in PERTURBATIONS:
-        moved = port_train_case(case, state, batch, perturb, chain_kernel)
+        moved = port_train_case(case, state, batch, perturb, engaged)
         for run in case.runs:
             for form, gaps in forms(moved[run], drawn[run]).items():
                 kept = out[run][form]
@@ -374,13 +380,13 @@ def main():
         calls, wrapped = [], k2.resblock_chain
         k2.resblock_chain = lambda *a: calls.append(1) or wrapped(*a)
         outcomes = port_train_case(case, state, batch,
-                                   chain_kernel="--chain-kernel" in sys.argv)
+                                   engaged="--engaged" in sys.argv)
         return np.savez(sys.argv[3], k2_calls=np.int64(len(calls)), **_flat(outcomes))
     entries = {}
     for case in seeded.TRAIN_CASES.values():
         state, batch, weights_sha, batch_sha = draws(case)
         outcomes = jax_train_case(case, state, batch)
-        gaps = self_gaps(case, state, batch, chain_kernel=case.name != "train_base")
+        gaps = self_gaps(case, state, batch, engaged=case.name != "train_base")
         entries.update(golden_entries(case, outcomes, gaps, weights_sha, batch_sha))
         print(f"{case.name}: {sorted(outcomes[case.runs[0]]['metrics'].items())}", flush=True)
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)

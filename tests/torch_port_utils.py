@@ -4,15 +4,19 @@ Inputs are drawn with numpy from a seed and handed to both packages; JAX
 variables cross to the port through utils/jax_bridge as numpy trees.
 """
 
+import functools
 import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import optax
+import pytest
 import torch
 from flax.core import unfreeze
 
+from megaportraits_tpu_torch.nn import blocks
+from megaportraits_tpu_torch.ops.kernels import bn_act as k4
 from megaportraits_tpu_torch.train.state import trainable_parameters
 from megaportraits_tpu_torch.utils.jax_bridge import load_jax_variables
 
@@ -25,6 +29,26 @@ if "PYTEST_XDIST_WORKER" in os.environ:
     THREADS = max(1, os.cpu_count() // int(os.environ["PYTEST_XDIST_WORKER_COUNT"]))
     os.environ["OMP_NUM_THREADS"] = str(THREADS)
     torch.set_num_threads(THREADS)
+
+
+@pytest.fixture
+def engaged_on_cpu(monkeypatch):
+    """The kernels' gate (``nn/blocks.kernel_engages``) with its device and
+    dtype half opened on the CPU, its train and autograd half as it is: K2
+    and K4 then run their plain versions where they would run on the card.
+    Returns a list that each call of K4's ``bn_act`` appends its residual
+    form to."""
+    calls = []
+    real = k4.bn_act
+
+    @functools.wraps(real)  # its name and launch counter, for profiling.counters
+    def counting(y, m1, s1, b1, residual=None, m2=None, s2=None, b2=None, relu=True):
+        calls.append("none" if residual is None else ("identity" if m2 is None else "shortcut"))
+        return real(y, m1, s1, b1, residual, m2, s2, b2, relu)
+
+    monkeypatch.setattr(blocks, "kernel_takes", lambda tensors: True)
+    monkeypatch.setattr(k4, "bn_act", counting)
+    return calls
 
 
 def numpy_tree(variables):
